@@ -1,0 +1,107 @@
+"""NeuRAD neural feature field and its proposal variant (port of the JAX
+package's fields/neurad_field.py, forward only).
+
+hash grid -> geometry MLP (1 + D outputs) -> SH direction encoding + residual
+feature MLP; the SDF becomes alpha through a learnable-steepness sigmoid
+(the SDF configuration is the only one ported). ``trunc_exp`` is a plain exp
+in the forward.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import Dict, Optional
+
+import torch
+from torch import nn
+
+from neuradar_tpu_torch.cameras.rays import RaySamples
+from neuradar_tpu_torch.field_components.encodings import SHEncoding
+from neuradar_tpu_torch.field_components.mlp import MLP
+from neuradar_tpu_torch.field_components.neurad_encoding import (
+    ActorSettings,
+    NeuRADHashEncoding,
+    NeuRADHashEncodingConfig,
+    StaticSettings,
+)
+from neuradar_tpu_torch.model_components.dynamic_actors import ActorCandidates
+from neuradar_tpu_torch.utils.math import GaussiansStd
+
+
+class SigmoidDensity(nn.Module):
+    """sdf -> alpha = sigmoid(-sdf * (|beta| + beta_min))."""
+
+    def __init__(self, init_beta: float = 20.0, beta_min: float = 1e-4):
+        super().__init__()
+        self.init_beta = init_beta
+        self.beta_min = beta_min
+        self.beta = nn.Parameter(torch.full((1,), init_beta))
+
+    def forward(self, sdf: torch.Tensor) -> torch.Tensor:
+        return torch.sigmoid(-sdf * (torch.abs(self.beta) + self.beta_min))
+
+
+@dataclass
+class NeuRADFieldConfig:
+    grid: NeuRADHashEncodingConfig = field(default_factory=NeuRADHashEncodingConfig)
+    geo_hidden_dim: int = 32
+    geo_num_layers: int = 2
+    nff_hidden_dim: int = 32
+    nff_num_layers: int = 3
+    nff_out_dim: int = 32
+    sdf_beta: float = 20.0
+
+
+@dataclass
+class NeuRADProposalFieldConfig:
+    grid: NeuRADHashEncodingConfig = field(
+        default_factory=lambda: NeuRADHashEncodingConfig(
+            static=StaticSettings(log2_hashmap_size=20, num_levels=6, max_res=4096, base_res=128, hashgrid_dim=1),
+            actor=ActorSettings(log2_hashmap_size=15, num_levels=4, base_res=64, max_res=1024, hashgrid_dim=1),
+        )
+    )
+    hidden_dim: int = 16
+
+
+class NeuRADField(nn.Module):
+    """Main neural feature field (one isotropic multisample per frustum)."""
+
+    def __init__(self, config: NeuRADFieldConfig, static_scale: float, n_actors: int):
+        super().__init__()
+        self.config = config
+        self.hashgrid = NeuRADHashEncoding(config.grid, static_scale, n_actors)
+        grid_dim = self.hashgrid.get_out_dim()
+        self.mlp_geo = MLP(grid_dim, config.nff_out_dim + 1, config.geo_num_layers, config.geo_hidden_dim)
+        self.direction_encoding = SHEncoding(levels=4)
+        self.mlp_feature = MLP(config.nff_out_dim + self.direction_encoding.get_out_dim(), config.nff_out_dim,
+                               config.nff_num_layers, config.nff_hidden_dim)
+        self.sdf_to_density = SigmoidDensity(init_beta=config.sdf_beta)
+
+    def forward(self, ray_samples: RaySamples, candidates: Optional[ActorCandidates]) -> Dict[str, torch.Tensor]:
+        """[R, S] samples -> 'feature' [R, S, D], 'sdf' and 'alpha' [R, S, 1]."""
+        gaussians = ray_samples.frustums.get_fast_isotropic_gaussian(1)
+        g = GaussiansStd(mean=gaussians.mean[..., 0, :], std=gaussians.std[..., 0, :])
+        dirs = ray_samples.frustums.directions[:, None, :].expand(g.mean.shape)
+        features, dirs = self.hashgrid(g, candidates, dirs)
+
+        geo = self.mlp_geo(features)
+        geo_out, geo_embed = geo[..., :1], geo[..., 1:]
+        dir_embed = self.direction_encoding(dirs)
+        feature = geo_embed + self.mlp_feature(torch.cat([geo_embed, dir_embed], dim=-1))
+        return {"feature": feature, "sdf": geo_out, "alpha": self.sdf_to_density(geo_out)}
+
+
+class NeuRADProposalField(nn.Module):
+    """Density-only proposal field: hash grid -> 2-layer MLP -> exp."""
+
+    def __init__(self, config: NeuRADProposalFieldConfig, static_scale: float, n_actors: int):
+        super().__init__()
+        self.config = config
+        self.hashgrid = NeuRADHashEncoding(config.grid, static_scale, n_actors)
+        self.density_decoder = MLP(self.hashgrid.get_out_dim(), 1, num_layers=2, layer_width=config.hidden_dim)
+
+    def forward(self, ray_samples: RaySamples, candidates: Optional[ActorCandidates]) -> torch.Tensor:
+        gaussians = ray_samples.frustums.get_fast_isotropic_gaussian(1)
+        g = GaussiansStd(mean=gaussians.mean[..., 0, :], std=gaussians.std[..., 0, :])
+        features, _ = self.hashgrid(g, candidates, None)
+        return torch.exp(self.density_decoder(features))  # [R, S, 1]
