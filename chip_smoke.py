@@ -5,16 +5,28 @@
 Phases, one line each before the final JSON line:
   1. device: requires CUDA; prints the card's name and power limit (nvidia-smi)
      and turns TF32 off for matmuls and convolutions;
-  2. build: compiles the CUDA kernels from neuradar_tpu_torch/csrc with nvcc;
-  3. kernels: K1 (composite_sky_fwd) and K2 (self_attention_fwd) against their
-     plain PyTorch versions at the render path's shapes, with CUDA-event times;
+  2. build: compiles the CUDA kernels from neuradar_tpu_torch/csrc with nvcc
+     (one nvcc per source, all started together);
+  3. kernels: K1 forward and backward (composite_sky_fwd / _bwd) and K2
+     forward, with and without dropout, and backward (self_attention_fwd /
+     _bwd) against their plain PyTorch versions at the shapes the render and
+     train paths give them, with CUDA-event times, the bound the card's
+     memory rate and float32 peak put on each, and the time of the PyTorch
+     library call that computes the same function, where there is one;
   4. render: the neuradar-synthetic model at full width with seeded random
      weights renders 2 camera frames at 720 x 1296, one 16,384-ray lidar scan
-     and 4 radar scans; the launch counts show both kernels ran on that path;
-  5. agreement: a tiny scene rendered through the kernels on the card and
-     through the plain versions on the CPU, with the same weights.
-The last line is {"ok": true, "device": {...}}. Any failure raises, and the
-script exits non-zero without printing it.
+     and 4 radar scans; the launch counts show K1 and K2 ran on that path;
+  5. train: the neuradar-synthetic trainer at its full width and batch
+     (113,840 rays a step), seeded, runs 3 train steps and one eval-loss call;
+     each step prints its loss terms, wall time and peak memory; every
+     parameter group must have changed, and the launch counts must show all
+     four kernels on that path;
+  6. agreement: a tiny scene rendered, and one tiny train step (loss terms and
+     every gradient), through the kernels on the card against the plain
+     versions on the CPU, with the same weights and the same random draws.
+The line before the last lists every kernel as JSON; the last line is
+{"ok": true, "device": {...}}. Any failure raises, and the script exits
+non-zero without printing them.
 """
 
 from __future__ import annotations
@@ -26,16 +38,51 @@ import sys
 import time
 
 import torch
+import torch.nn.functional as F
 
+from neuradar_tpu_torch.configs.method_configs import method_configs
+from neuradar_tpu_torch.data.datamanager import ADDataManagerConfig
 from neuradar_tpu_torch.data.dataparsers.synthetic import SyntheticDataParser, SyntheticDataParserConfig
+from neuradar_tpu_torch.engine.trainer import Trainer
 from neuradar_tpu_torch.ops import build
-from neuradar_tpu_torch.ops.attention import attention_reference, self_attention_fwd
-from neuradar_tpu_torch.ops.volumetric import composite_sky_fwd, composite_sky_reference
+from neuradar_tpu_torch.ops.attention import (
+    attention_bwd_reference,
+    attention_reference,
+    self_attention_bwd,
+    self_attention_fwd,
+)
+from neuradar_tpu_torch.ops.volumetric import (
+    composite_sky_bwd,
+    composite_sky_bwd_reference,
+    composite_sky_fwd,
+    composite_sky_reference,
+)
 from neuradar_tpu_torch.pipelines.ad_neuradar_pipeline import ADNeuRadarPipeline, ADNeuRadarPipelineConfig
 
 K1_TOL = dict(rtol=1e-5, atol=1e-6)
 K2_TOL = dict(rtol=1e-4, atol=1e-5)  # online softmax sums in another order than the plain version
+# backward: suffix sums and dS sums are taken in other orders than autograd through the plain versions
+K1_BWD_TOL = dict(rtol=1e-4, atol=1e-5)
+K2_BWD_TOL = dict(rtol=2e-4, atol=2e-5)
 TINY_TOL = dict(rtol=1e-4, atol=1e-4)
+# a train step: loss terms to float32 summation order; gradients as in tests/test_torch_train.py:
+# rtol 1e-3, atol 1e-4 of the parameter's largest gradient, at least 1e-6 (a gradient whose exact
+# value is 0, a convolution's bias before batch norm, is rounding noise of ~1e-7 on either side)
+TRAIN_LOSS_TOL = dict(rtol=1e-4, atol=1e-6)
+TRAIN_GRAD_RTOL = 1e-3
+TRAIN_GRAD_ATOL_FLOOR = 1e-6
+
+# the card's published peaks (H100 SXM data sheet, at 700 W): HBM bytes/s and float32 FLOP/s outside
+# the tensor cores
+HBM_BYTES_PER_S = 3.35e12
+FP32_FLOPS = 67e12
+KERNELS = (composite_sky_fwd, composite_sky_bwd, self_attention_fwd, self_attention_bwd)
+# The full-width train step runs the per-ray core unchunked, as the preset does: it fits (51 GB
+# peak on an 80 GB card) and is 1.8x faster than 8 chunks recomputed in the backward pass. The
+# tiny train agreement runs 2 recomputed chunks, so the checkpointed path runs on the card too.
+NFF_CHUNKS = 1
+TINY_NFF_CHUNKS = 2
+TRAIN_STEPS = 3
 
 
 def phase(label: str, /, **fields) -> None:
@@ -57,39 +104,95 @@ def cuda_time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
+def _bound(nbytes: float, flops: float) -> dict:
+    """The least time the card could take: bytes over the memory rate or float32 operations over
+    the float32 peak, whichever is larger."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / FP32_FLOPS * 1e3
+    return {"bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": nbytes, "flops": flops}
+
+
+def _max_err(got, want) -> float:
+    return max(float((g - w).abs().max()) for g, w in zip(got, want))
+
+
+def _assert_all_close(got, want, tol, what):
+    for i, (g, w) in enumerate(zip(got, want)):
+        torch.testing.assert_close(g, w, **tol, msg=lambda m, i=i: f"{what} output {i}: {m}")
+
+
 def check_kernels(device: torch.device) -> list:
+    """Each kernel against its plain version at the shapes of the render and train paths."""
     gen = torch.Generator(device=device).manual_seed(0)
     rows = []
+    k1 = {"route": "cuda", "source": "neuradar_tpu_torch/csrc/composite_sky.cu"}
+    k2 = {"route": "cuda", "source": "neuradar_tpu_torch/csrc/attention.cu"}
 
-    R, S, C = 32768, 33, 32  # one camera chunk: 32 NeRF samples + the sky sample, nff_out_dim 32
+    # K1 forward at one render chunk: 32 NeRF samples + the sky sample, nff_out_dim 32
+    R, S, C = 32768, 33, 32
     alpha = torch.rand((R, S), generator=gen, device=device)
     feats = torch.randn((R, S, C), generator=gen, device=device)
-    got = composite_sky_fwd(alpha, feats)
-    want = composite_sky_reference(alpha, feats)
-    for g, w, name in zip(got, want, ("w_sky", "features", "accum")):
-        torch.testing.assert_close(g, w, **K1_TOL, msg=lambda m, name=name: f"K1 {name}: {m}")
-    rows.append({
-        "name": "composite_sky_fwd", "route": "cuda", "source": "neuradar_tpu_torch/csrc/composite_sky.cu",
-        "replaces": "neuradar_tpu/ops/volumetric.py:51",
-        "shape": [R, S, C],
-        "max_abs_err": max(float((g - w).abs().max()) for g, w in zip(got, want)),
-        "ms": cuda_time_ms(lambda: composite_sky_fwd(alpha, feats)),
-        "plain_ms": cuda_time_ms(lambda: composite_sky_reference(alpha, feats)),
-    })
+    got, want = composite_sky_fwd(alpha, feats), composite_sky_reference(alpha, feats)
+    _assert_all_close(got, want, K1_TOL, "K1 fwd")
+    rows.append({"name": "composite_sky_fwd", **k1, "replaces": "neuradar_tpu/ops/volumetric.py:100",
+                 "path": "render", "shape": [R, S, C], "max_abs_err": _max_err(got, want),
+                 "ms": cuda_time_ms(lambda: composite_sky_fwd(alpha, feats)),
+                 "plain_ms": cuda_time_ms(lambda: composite_sky_reference(alpha, feats)), "library_ms": None,
+                 **_bound(4 * (R * S * (C + 2) + R * (C + 1)), R * S * (2 * C + 8))})
 
-    B, S, D = 4, 3531, 48  # 4 radar scans of the ZOD FoV, d_model 48, one head
+    # K1 backward at one train chunk of the 113,840-ray step
+    R = 113840 // NFF_CHUNKS
+    alpha = torch.rand((R, S), generator=gen, device=device)
+    feats = torch.randn((R, S, C), generator=gen, device=device)
+    cots = (torch.randn((R, S), generator=gen, device=device), torch.randn((R, C), generator=gen, device=device),
+            torch.randn((R, 1), generator=gen, device=device))
+    got, want = composite_sky_bwd(alpha, feats, *cots), composite_sky_bwd_reference(alpha, feats, *cots)
+    _assert_all_close(got, want, K1_BWD_TOL, "K1 bwd")
+    rows.append({"name": "composite_sky_bwd", **k1, "replaces": "neuradar_tpu/ops/volumetric.py:125",
+                 "path": "train", "shape": [R, S, C], "max_abs_err": _max_err(got, want),
+                 "ms": cuda_time_ms(lambda: composite_sky_bwd(alpha, feats, *cots)),
+                 "plain_ms": cuda_time_ms(lambda: composite_sky_bwd_reference(alpha, feats, *cots)),
+                 "library_ms": None,
+                 **_bound(4 * (2 * R * S * C + 3 * R * S + R * C + R), R * S * (3 * C + 12))})
+
+    # K2 forward at the render path's radar batch, dropout 0 (4 scans of the ZOD FoV, d_model 48)
+    B, S, D = 4, 3531, 48
     q, k, v = (torch.randn((B, S, D), generator=gen, device=device) for _ in range(3))
-    got = self_attention_fwd(q, k, v)
-    want = attention_reference(q, k, v)
-    torch.testing.assert_close(got, want, **K2_TOL, msg=lambda m: f"K2: {m}")
-    rows.append({
-        "name": "self_attention_fwd", "route": "cuda", "source": "neuradar_tpu_torch/csrc/attention.cu",
-        "replaces": "neuradar_tpu/ops/attention.py:119",
-        "shape": [B, S, D],
-        "max_abs_err": float((got - want).abs().max()),
-        "ms": cuda_time_ms(lambda: self_attention_fwd(q, k, v)),
-        "plain_ms": cuda_time_ms(lambda: attention_reference(q, k, v)),
-    })
+    got, want = self_attention_fwd(q, k, v), attention_reference(q, k, v)
+    torch.testing.assert_close(got, want, **K2_TOL, msg=lambda m: f"K2 fwd: {m}")
+    phase("kernel_render_shape", name="self_attention_fwd", shape=[B, S, D], dropout=0.0,
+          max_abs_err=float((got - want).abs().max()),
+          ms=cuda_time_ms(lambda: self_attention_fwd(q, k, v)),
+          plain_ms=cuda_time_ms(lambda: attention_reference(q, k, v)),
+          library_ms=cuda_time_ms(lambda: F.scaled_dot_product_attention(q[:, None], k[:, None], v[:, None])),
+          **_bound(4 * 4 * B * S * D, 4 * B * S * S * D))
+
+    # K2 forward with dropout and backward at the train batch: 16 scans, rate 0.1, one seed
+    B, rate, seed = 16, 0.1, 1234
+    q, k, v, dout = (torch.randn((B, S, D), generator=gen, device=device) for _ in range(4))
+    out, lse = self_attention_fwd(q, k, v, rate, seed, return_lse=True)
+    want = attention_reference(q, k, v, seed, rate)
+    torch.testing.assert_close(out, want, **K2_TOL, msg=lambda m: f"K2 fwd dropout: {m}")
+    qh, kh, vh = (t[:, None].clone().requires_grad_(True) for t in (q, k, v))
+    lib_out = F.scaled_dot_product_attention(qh, kh, vh)
+    rows.append({"name": "self_attention_fwd", **k2, "replaces": "neuradar_tpu/ops/attention.py:176",
+                 "path": "train", "shape": [B, S, D], "dropout": rate, "max_abs_err": float((out - want).abs().max()),
+                 "ms": cuda_time_ms(lambda: self_attention_fwd(q, k, v, rate, seed, return_lse=True)),
+                 "plain_ms": cuda_time_ms(lambda: attention_reference(q, k, v, seed, rate)),
+                 "library_ms": cuda_time_ms(lambda: F.scaled_dot_product_attention(
+                     q[:, None], k[:, None], v[:, None], dropout_p=rate)),
+                 **_bound(4 * (4 * B * S * D + B * S), 4 * B * S * S * D)})
+    got = self_attention_bwd(q, k, v, out, dout, lse, rate, seed)
+    want = attention_bwd_reference(q, k, v, dout, seed, rate)
+    _assert_all_close(got, want, K2_BWD_TOL, "K2 bwd")
+    rows.append({"name": "self_attention_bwd", **k2, "replaces": "neuradar_tpu/ops/attention.py:196",
+                 "path": "train", "shape": [B, S, D], "dropout": rate, "max_abs_err": _max_err(got, want),
+                 "ms": cuda_time_ms(lambda: self_attention_bwd(q, k, v, out, dout, lse, rate, seed)),
+                 "plain_ms": cuda_time_ms(lambda: attention_bwd_reference(q, k, v, dout, seed, rate)),
+                 # the backward alone of SDPA (without dropout), through autograd
+                 "library_ms": cuda_time_ms(lambda: torch.autograd.grad(lib_out, (qh, kh, vh), dout[:, None],
+                                                                          retain_graph=True)),
+                 **_bound(4 * (8 * B * S * D + B * S), 10 * B * S * S * D)})
     return rows
 
 
@@ -148,12 +251,63 @@ def render_full_width(device: torch.device) -> None:
     torch.cuda.empty_cache()
 
 
-def _tiny_pipeline(device) -> ADNeuRadarPipeline:
+def _param_groups(trainer: Trainer) -> dict:
+    groups = {}
+    for name, p in trainer.model.named_parameters():
+        groups.setdefault(trainer.optimizer.labels[name], []).append(p)
+    return groups
+
+
+def train_full_width(device: torch.device) -> None:
+    """This slice's path: the neuradar-synthetic trainer at full width and batch, seeded."""
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    cfg = method_configs["neuradar-synthetic"]()
+    cfg.pipeline.model.nff_chunks = NFF_CHUNKS
+    trainer = Trainer(cfg, cfg.dataparser.setup().get_dataparser_outputs(), device)
+    trainer.setup()
+    layout = trainer.pipeline.layout
+    torch.cuda.synchronize()
+    phase("train_setup", seconds=time.perf_counter() - t0, seed=cfg.seed,
+          n_params=sum(p.numel() for p in trainer.model.parameters()), rays_per_step=layout.total,
+          camera_rays=layout.num_cam, lidar_rays=layout.num_lidar, radar_scans=layout.num_radar_scans,
+          rays_per_radar_scan=layout.rays_per_scan, nff_chunks=NFF_CHUNKS)
+    groups = _param_groups(trainer)
+    before = {g: [p.detach().clone() for p in ps] for g, ps in groups.items()}
+    for step in range(TRAIN_STEPS):
+        torch.cuda.reset_peak_memory_stats()
+        (losses, metrics), dt = _timed(trainer.train_step)
+        values = {k: float(v) for k, v in losses.items()}
+        finite = all(torch.isfinite(torch.tensor(v)) for v in values.values())
+        phase("train_step", step=step, seconds=dt, rays_per_s=layout.total / dt, finite=finite,
+              peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30, losses=values,
+              metrics={k: float(v) for k, v in metrics.items()})
+        _expect(finite, f"train step {step}: a loss term is not finite: {values}")
+    (losses, metrics), dt = _timed(trainer.eval_loss)
+    values = {k: float(v) for k, v in losses.items()}
+    finite = all(torch.isfinite(torch.tensor(v)) for v in values.values())
+    phase("eval_loss", seconds=dt, finite=finite, losses=values, metrics={k: float(v) for k, v in metrics.items()})
+    _expect(finite, f"eval loss not finite: {values}")
+    changed = {g: any(not torch.equal(p, q) for p, q in zip(groups[g], before[g])) for g in groups}
+    phase("train_params_changed", groups=changed)
+    _expect(all(changed.values()), f"a parameter group did not change: {changed}")
+    trainer.shutdown()
+    del trainer, before, groups
+    torch.cuda.empty_cache()
+
+
+def _tiny_outputs():
     out = SyntheticDataParser(SyntheticDataParserConfig(
         num_frames=8, image_height=24, image_width=36, lidar_points_per_scan=256)).get_dataparser_outputs()
     out.radar_fov = dict(min_azimuth=-0.8, max_azimuth=0.8, min_elevation=-0.08, max_elevation=0.32,
                          azimuth_step=0.1, elevation_step=0.1)
-    cfg = ADNeuRadarPipelineConfig()
+    return out
+
+
+def _tiny_pipeline(device, nff_chunks: int = 1) -> ADNeuRadarPipeline:
+    out = _tiny_outputs()
+    cfg = ADNeuRadarPipelineConfig(datamanager=ADDataManagerConfig(
+        num_rgb_patches=2, patch_size=4, num_lidar_rays=32, num_radar_scans=2, max_radar_gt=16))
     m = cfg.model
     m.field.grid.static.log2_hashmap_size = 12
     m.field.grid.actor.log2_hashmap_size = 10
@@ -162,6 +316,7 @@ def _tiny_pipeline(device) -> ADNeuRadarPipeline:
         pf.grid.actor.log2_hashmap_size = 9
     m.sampling.num_proposal_samples = (16, 8)
     m.sampling.num_nerf_samples = 6
+    m.nff_chunks = nff_chunks
     return ADNeuRadarPipeline(cfg, out, device, seed=0)
 
 
@@ -180,6 +335,38 @@ def check_tiny_agreement(device: torch.device) -> float:
             torch.testing.assert_close(g[key].cpu(), c[key], **TINY_TOL, msg=lambda m, key=key: f"{key}: {m}")
             worst = max(worst, float((g[key].cpu() - c[key]).abs().max()))
     return worst
+
+
+def check_tiny_train_agreement(device: torch.device) -> dict:
+    """One tiny train step (flips and dropout on, the per-ray core in recomputed chunks) through
+    the kernels on the card against the plain versions on the CPU: same weights, same batch, and
+    the same random draws, made by a CPU generator with one seed and moved to the card."""
+    gpu, cpu = _tiny_pipeline(device, TINY_NFF_CHUNKS), _tiny_pipeline("cpu", TINY_NFF_CHUNKS)
+    _expect(gpu.layout.total % TINY_NFF_CHUNKS == 0, f"{gpu.layout.total} rays do not split in chunks")
+    cpu.model.load_state_dict({k: v.cpu() for k, v in gpu.model.state_dict().items()})
+    batch = gpu.datamanager.sample_train_batch()
+    results = []
+    for pipe in (gpu, cpu):
+        pipe.model.train()
+        pipe.model.zero_grad()
+        total, loss_dict, _ = pipe.make_train_loss_fn()(batch, torch.Generator().manual_seed(7))
+        total.backward()
+        results.append((total, loss_dict))
+    (g_total, g_losses), (c_total, c_losses) = results
+    worst_loss = 0.0
+    for key in ("total", *c_losses):
+        g, c = (g_total, c_total) if key == "total" else (g_losses[key], c_losses[key])
+        torch.testing.assert_close(g.detach().cpu(), c.detach(), **TRAIN_LOSS_TOL, msg=lambda m, key=key: f"{key}: {m}")
+        worst_loss = max(worst_loss, float((g.detach().cpu() - c.detach()).abs()))
+    worst_grad = 0.0
+    for (name, pg), pc in zip(gpu.model.named_parameters(), cpu.model.parameters()):
+        g = pg.grad.cpu() if pg.grad is not None else torch.zeros_like(pc)
+        c = pc.grad if pc.grad is not None else torch.zeros_like(pc)
+        atol = max(1e-4 * float(c.abs().max()), TRAIN_GRAD_ATOL_FLOOR)
+        torch.testing.assert_close(g, c, rtol=TRAIN_GRAD_RTOL, atol=atol, msg=lambda m, name=name: f"grad {name}: {m}")
+        worst_grad = max(worst_grad, float((g - c).abs().max()))
+    return {"nff_chunks": TINY_NFF_CHUNKS, "loss_terms": len(c_losses), "max_abs_err_loss": worst_loss, "max_abs_err_grad": worst_grad,
+            "loss_tol": TRAIN_LOSS_TOL, "grad_rtol": TRAIN_GRAD_RTOL, "grad_atol_floor": TRAIN_GRAD_ATOL_FLOOR, "total": float(c_total.detach())}
 
 
 def main() -> int:
@@ -206,20 +393,31 @@ def main() -> int:
     for row in rows:
         phase("kernel", **row)
 
-    kernels = (composite_sky_fwd, self_attention_fwd)
-    for k in kernels:
+    render_kernels = (composite_sky_fwd, self_attention_fwd)
+    for k in KERNELS:
         k.launches = 0
     t0 = time.perf_counter()
     render_full_width(device)
-    launches = {k.__name__: k.launches for k in kernels}
-    phase("render", seconds=time.perf_counter() - t0, launches=launches,
+    render_launches = {k.__name__: k.launches for k in KERNELS}
+    phase("render", seconds=time.perf_counter() - t0, launches=render_launches,
           peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30)
-    _expect(all(n > 0 for n in launches.values()), f"a kernel of the render path never launched: {launches}")
+    _expect(all(render_launches[k.__name__] > 0 for k in render_kernels),
+            f"a kernel of the render path never launched: {render_launches}")
+
+    for k in KERNELS:
+        k.launches = 0
+    t0 = time.perf_counter()
+    train_full_width(device)
+    launches = {k.__name__: k.launches for k in KERNELS}
+    phase("train", seconds=time.perf_counter() - t0, launches=launches)
+    _expect(all(n > 0 for n in launches.values()), f"a kernel of the train path never launched: {launches}")
 
     phase("agreement", max_abs_err=check_tiny_agreement(device), **TINY_TOL)
+    phase("train_agreement", **check_tiny_train_agreement(device))
 
     for row in rows:
         row["launches"] = launches[row["name"]]
+        row["render_launches"] = render_launches[row["name"]]
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

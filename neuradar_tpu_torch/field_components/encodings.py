@@ -20,6 +20,7 @@ from typing import Sequence
 import numpy as np
 import torch
 from torch import nn
+from torch.profiler import record_function
 
 # Instant-NGP / tcnn primes; the fourth hashes the actor index of the 4-D grid
 _HASH_PRIMES = (1, 2654435761, 805459861, 3674653429)
@@ -85,8 +86,9 @@ class HashEncoding(nn.Module):
         if positions.shape[-1] != self.n_input_dims:
             raise ValueError(f"expected {self.n_input_dims}-D input, got {tuple(positions.shape)}")
         batch_shape = positions.shape[:-1]
-        out = hash_encode(positions.reshape(-1, self.n_input_dims), self.hash_table, self.scalings,
-                          self.table_size, self.num_levels, self.features_per_level)
+        with record_function("hash_encode"):
+            out = hash_encode(positions.reshape(-1, self.n_input_dims), self.hash_table, self.scalings,
+                              self.table_size, self.num_levels, self.features_per_level)
         return out.reshape(*batch_shape, self.get_out_dim())
 
 

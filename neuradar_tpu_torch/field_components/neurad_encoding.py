@@ -1,5 +1,5 @@
 """NeuRAD scene encoding: static world hash grid + 4-D actor hash grid
-(port of the JAX package's field_components/neurad_encoding.py, eval path).
+(port of the JAX package's field_components/neurad_encoding.py).
 
 A sample inside an actor's padded box reads the actor grid at its box-frame
 position, with the normalized actor index as the 4th coordinate; every other
@@ -39,6 +39,7 @@ class StaticSettings:
 
 @dataclass
 class ActorSettings:
+    flip_prob: float = 0.5
     actor_scale: float = 10.0
     hashgrid_dim: int = 4
     num_levels: int = 4
@@ -51,6 +52,8 @@ class ActorSettings:
 class NeuRADHashEncodingConfig:
     static: StaticSettings = field(default_factory=StaticSettings)
     actor: ActorSettings = field(default_factory=ActorSettings)
+    require_actor_grad: bool = True
+    """False: no gradient reaches the actor trajectories through this grid."""
 
 
 def _rescale_grid_features(grid_feats: torch.Tensor, std: torch.Tensor, scalings: Sequence[float],
@@ -101,6 +104,8 @@ class NeuRADHashEncoding(nn.Module):
         if not self.has_actors or candidates is None:
             return static_feats, directions
 
+        if not cfg.require_actor_grad:
+            candidates = candidates.detach()
         sel, has_actor = assign_samples_to_actors(candidates, mean)
         w2b = gather_selected_w2b_components(candidates, sel)  # 3 x 4 list of [R, S]
         actor_id = torch.gather(candidates.actor_id, 1, sel)

@@ -3,8 +3,8 @@ package's fields/neurad_field.py, forward only).
 
 hash grid -> geometry MLP (1 + D outputs) -> SH direction encoding + residual
 feature MLP; the SDF becomes alpha through a learnable-steepness sigmoid
-(the SDF configuration is the only one ported). ``trunc_exp`` is a plain exp
-in the forward.
+(the SDF configuration is the only one ported). ``trunc_exp`` is exp with
+the JAX package's clamped gradient.
 """
 
 from __future__ import annotations
@@ -28,6 +28,23 @@ from neuradar_tpu_torch.model_components.dynamic_actors import ActorCandidates
 from neuradar_tpu_torch.utils.math import GaussiansStd
 
 
+class _TruncExp(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        ctx.save_for_backward(x)
+        return torch.exp(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        return g * torch.exp(torch.clamp(x, -15.0, 15.0))
+
+
+def trunc_exp(x: torch.Tensor) -> torch.Tensor:
+    """exp whose gradient is exp(clip(x, -15, 15))."""
+    return _TruncExp.apply(x)
+
+
 class SigmoidDensity(nn.Module):
     """sdf -> alpha = sigmoid(-sdf * (|beta| + beta_min))."""
 
@@ -43,7 +60,9 @@ class SigmoidDensity(nn.Module):
 
 @dataclass
 class NeuRADFieldConfig:
-    grid: NeuRADHashEncodingConfig = field(default_factory=NeuRADHashEncodingConfig)
+    grid: NeuRADHashEncodingConfig = field(
+        default_factory=lambda: NeuRADHashEncodingConfig(actor=ActorSettings(flip_prob=0.25))
+    )
     geo_hidden_dim: int = 32
     geo_num_layers: int = 2
     nff_hidden_dim: int = 32
@@ -58,6 +77,7 @@ class NeuRADProposalFieldConfig:
         default_factory=lambda: NeuRADHashEncodingConfig(
             static=StaticSettings(log2_hashmap_size=20, num_levels=6, max_res=4096, base_res=128, hashgrid_dim=1),
             actor=ActorSettings(log2_hashmap_size=15, num_levels=4, base_res=64, max_res=1024, hashgrid_dim=1),
+            require_actor_grad=False,
         )
     )
     hidden_dim: int = 16
@@ -104,4 +124,4 @@ class NeuRADProposalField(nn.Module):
         gaussians = ray_samples.frustums.get_fast_isotropic_gaussian(1)
         g = GaussiansStd(mean=gaussians.mean[..., 0, :], std=gaussians.std[..., 0, :])
         features, _ = self.hashgrid(g, candidates, None)
-        return torch.exp(self.density_decoder(features))  # [R, S, 1]
+        return trunc_exp(self.density_decoder(features))  # [R, S, 1]

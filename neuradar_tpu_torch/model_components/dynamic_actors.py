@@ -1,6 +1,7 @@
 """Dynamic actors: rigid trajectories of moving objects (port of the JAX
-package's model_components/dynamic_actors.py, the eval path: no random x-flip
-and no actor edits).
+package's model_components/dynamic_actors.py, without actor edits). In
+training each ray may mirror the actors it sees along their x axis (the
+random x-flip augmentation), drawn from the caller's generator.
 
 Each ray keeps a fixed set of K candidate actors (point-line distance from the
 actor centre below its bounding radius, nearest first); per-sample in-box
@@ -10,13 +11,14 @@ tests then pick the first candidate whose box holds the sample.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import List, Tuple
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
 from torch import nn
 
 from neuradar_tpu_torch.utils import poses as pose_utils
+from neuradar_tpu_torch.utils import rng as rng_utils
 
 
 @dataclass
@@ -84,7 +86,15 @@ class ActorCandidates:
     radius: torch.Tensor  # [R, K]
     actor_id: torch.Tensor  # [R, K] long
     valid: torch.Tensor  # [R, K] bool
-    flip: torch.Tensor  # [R] +1 (no flip at eval)
+    flip: torch.Tensor  # [R] +1, or -1 for a ray whose actors are mirrored (train)
+
+    def detach(self) -> "ActorCandidates":
+        return ActorCandidates(*(t.detach() for t in (self.w2b, self.center, self.bounds, self.radius,
+                                                      self.actor_id, self.valid, self.flip)))
+
+    def chunk(self, sl: slice) -> "ActorCandidates":
+        return ActorCandidates(*(t[sl] for t in (self.w2b, self.center, self.bounds, self.radius,
+                                                 self.actor_id, self.valid, self.flip)))
 
 
 class DynamicActors(nn.Module):
@@ -110,11 +120,13 @@ class DynamicActors(nn.Module):
                                                                self.present)
         return pose_utils.interpolate_poses_9d_to_matrices(poses9), valid
 
-    def get_ray_candidates(self, ray_times: torch.Tensor, line_points: torch.Tensor,
-                           line_dirs: torch.Tensor) -> ActorCandidates:
+    def get_ray_candidates(self, ray_times: torch.Tensor, line_points: torch.Tensor, line_dirs: torch.Tensor,
+                           flip_generator: Optional[torch.Generator] = None,
+                           flip_prob: float = 0.0) -> ActorCandidates:
         """The K nearest actors per ray whose bounding sphere the ray line passes through.
 
-        ray_times [R], line_points [R, 3] (origins), line_dirs [R, 3] (unit)."""
+        ray_times [R], line_points [R, 3] (origins), line_dirs [R, 3] (unit). With a
+        generator and flip_prob > 0, each ray is x-flipped with probability flip_prob."""
         K = min(self.config.max_actors_per_ray, max(self.n_actors, 1))
         b2w, valid = self.get_boxes2world(ray_times)  # [R, A, 3, 4], [R, A]
         centers = b2w[..., :3, 3]
@@ -128,6 +140,11 @@ class DynamicActors(nn.Module):
         k_score, k_idx = k_score[:, :K], k_idx[:, :K]
 
         b2w_k = torch.gather(b2w, 1, k_idx[..., None, None].expand(-1, -1, 3, 4))
+        R = ray_times.shape[0]
+        if flip_generator is not None and flip_prob > 0.0:
+            flip = torch.where(rng_utils.uniform(flip_generator, (R,), line_points.device) < flip_prob, -1.0, 1.0)
+        else:
+            flip = torch.ones(R, device=line_points.device)
         return ActorCandidates(
             w2b=pose_utils.inverse(b2w_k),
             center=b2w_k[..., :3, 3],
@@ -135,7 +152,7 @@ class DynamicActors(nn.Module):
             radius=radii[k_idx],
             actor_id=self.actor_to_id[k_idx],
             valid=torch.isfinite(k_score),
-            flip=torch.ones(ray_times.shape[0], dtype=line_points.dtype, device=line_points.device),
+            flip=flip.to(line_points.dtype),
         )
 
 

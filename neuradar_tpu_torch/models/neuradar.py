@@ -1,22 +1,29 @@
 """NeuRadar: joint camera + lidar + radar neural feature field (port of the
-JAX package's models/neuradar.py, the eval forward: ``get_outputs``,
-``get_nff_outputs`` and ``_nff_core`` with train=False).
+JAX package's models/neuradar.py: ``get_outputs``, ``get_nff_outputs``,
+``_nff_core`` and ``loss_and_metrics``, in eval and in training).
 
 One merged ray bundle with a static segment layout [camera | lidar | radar
 scans]: proposal sampling -> field -> volume compositing (kernel K1) ->
 appearance embedding -> the per-modality decoders (the radar encoder's
-attention is kernel K2). Losses, the camera optimizer and the train-time
-randomness (sampling jitter, actor flips, dropout) come with the train step.
+attention is kernel K2) -> the loss terms. Training draws its randomness
+(sampling jitter, actor flips, dropout) from one explicit generator. The
+per-ray core runs in ``nff_chunks`` chunks; in training each chunk is
+recomputed in the backward pass (``torch.utils.checkpoint``, the counterpart
+of the JAX package's nff_remat), so only one chunk's activations live at a
+time. The camera optimizer (mode "off" in the port's presets) and the VGG
+loss are not ported.
 """
 
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass, field as dataclass_field
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.profiler import record_function
+from torch.utils.checkpoint import checkpoint
 
 from neuradar_tpu_torch.cameras.rays import RayBundle, RaySamples
 from neuradar_tpu_torch.field_components.mlp import MLP
@@ -33,16 +40,44 @@ from neuradar_tpu_torch.model_components.dynamic_actors import (
     DynamicActors,
     DynamicActorsConfig,
 )
+from neuradar_tpu_torch.model_components import radar_utils
+from neuradar_tpu_torch.model_components.losses import (
+    binary_cross_entropy_with_logits,
+    distortion_loss_sdist,
+    masked_mean,
+    ray_samples_to_sdist,
+    zipnerf_interlevel_loss_sdist,
+)
 from neuradar_tpu_torch.model_components.radar_decoder import RadarDecoder, spherical_to_cartesian
-from neuradar_tpu_torch.model_components.ray_samplers import power_sampler, proposal_network_sampler
+from neuradar_tpu_torch.model_components.ray_samplers import draw_jitter, power_sampler, proposal_network_sampler
 from neuradar_tpu_torch.model_components.renderers import render_depth_simple
-from neuradar_tpu_torch.ops.volumetric import composite_sky_fwd
+from neuradar_tpu_torch.ops.volumetric import composite_sky
 
 EPS = 1e-7
 
 
 @dataclass
+class LossSettings:
+    rgb_mult: float = 5.0
+    depth_mult: float = 0.01
+    intensity_mult: float = 0.1
+    carving_mult: float = 0.01
+    carving_epsilon: float = 0.1
+    quantile_threshold: float = 0.95
+    interlevel_loss_mult: float = 0.001
+    distortion_loss_mult: float = 0.002
+    non_return_lidar_distance: float = 150.0
+    non_return_loss_mult: float = 0.1
+    ray_drop_loss_mult: float = 0.01
+    prop_lidar_loss_mult: float = 0.1
+    radar_mult: float = 0.02
+    radar_loss_type: str = "nll"  # nll | euclidean
+    radar_assignment: str = "auction"
+
+
+@dataclass
 class SamplingSettings:
+    single_jitter: bool = True
     proposal_field_1: NeuRADProposalFieldConfig = dataclass_field(default_factory=NeuRADProposalFieldConfig)
     proposal_field_2: NeuRADProposalFieldConfig = dataclass_field(default_factory=NeuRADProposalFieldConfig)
     num_proposal_samples: Tuple[int, ...] = (128, 64)
@@ -54,6 +89,7 @@ class SamplingSettings:
 
 @dataclass
 class NeuRadarModelConfig:
+    loss: LossSettings = dataclass_field(default_factory=LossSettings)
     sampling: SamplingSettings = dataclass_field(default_factory=SamplingSettings)
     field: NeuRADFieldConfig = dataclass_field(default_factory=NeuRADFieldConfig)
     dynamic_actors: DynamicActorsConfig = dataclass_field(default_factory=DynamicActorsConfig)
@@ -62,6 +98,14 @@ class NeuRadarModelConfig:
     rgb_upsample_factor: int = 3
     rgb_hidden_dim: int = 32
     eval_num_rays_per_chunk: int = 1 << 15
+    nff_chunks: int = 1
+    """Sequential ray chunks of the per-ray core; must divide the bundle (else one chunk). In
+    training each chunk is recomputed in the backward pass instead of keeping its activations."""
+    radar_transformer_dropout: float = 0.1
+
+    @property
+    def num_proposal_rounds(self) -> int:
+        return len(self.sampling.num_proposal_samples)
 
 
 @dataclass(frozen=True)
@@ -122,20 +166,27 @@ class NeuRadarModel(nn.Module):
         n_features = config.field.nff_out_dim + config.appearance_dim
         self.rgb_decoder = RGBDecoder(n_features, config.rgb_hidden_dim, config.rgb_upsample_factor)
         self.lidar_decoder = MLP(n_features, 2, num_layers=3, layer_width=32)
-        self.radar_decoder = RadarDecoder(d_model=n_features)
+        self.radar_decoder = RadarDecoder(d_model=n_features, dropout=config.radar_transformer_dropout)
 
     @property
     def proposal_fields(self):
         return (self.proposal_field_0, self.proposal_field_1)
 
-    def get_outputs(self, ray_bundle: RayBundle, layout: SegmentLayout) -> Dict[str, torch.Tensor]:
-        outputs = self.get_nff_outputs(ray_bundle, layout)
+    def get_outputs(self, ray_bundle: RayBundle, layout: SegmentLayout, train: bool = False,
+                    generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
+        """Decoded outputs of a merged bundle. ``train`` needs a generator: it jitters the
+        samples, flips actors, applies dropout and puts the RGB CNN's batch norm in training."""
+        if train and generator is None:
+            raise ValueError("training draws its randomness from a generator")
+        outputs = self.get_nff_outputs(ray_bundle, layout, train, generator)
         features = outputs.pop("features")
 
         cam_feats = layout.cam(features)
         if cam_feats is not None:
             ph, pw = layout.patch_size
-            outputs["rgb"] = self.rgb_decoder(cam_feats.reshape(-1, ph, pw, cam_feats.shape[-1]))
+            self.rgb_decoder.train(train)
+            with record_function("rgb_decoder"):
+                outputs["rgb"] = self.rgb_decoder(cam_feats.reshape(-1, ph, pw, cam_feats.shape[-1]))
 
         lidar_feats = layout.lidar(features)
         if lidar_feats is not None:
@@ -150,18 +201,23 @@ class NeuRadarModel(nn.Module):
             spher = layout.radar(ray_bundle.metadata["directions_spher"]).reshape(ns, nr, 2)
             geometry = spherical_to_cartesian(depth, spher[..., 1:2], spher[..., 0:1])
             # all scans in one batch: attention never crosses scans
-            outputs["radar_output"], outputs["radar_angles"] = self.radar_decoder(
-                radar_feats.reshape(ns, nr, radar_feats.shape[-1]), geometry
-            )
+            with record_function("radar_decoder"):
+                outputs["radar_output"], outputs["radar_angles"] = self.radar_decoder(
+                    radar_feats.reshape(ns, nr, radar_feats.shape[-1]), geometry, generator if train else None
+                )
         return outputs
 
     def decode_camera_features(self, features: torch.Tensor, patch_size: Tuple[int, int]) -> torch.Tensor:
         """Rendered features [h*w, C] -> rgb [1, h*u, w*u, 3] through the upsampling CNN."""
         ph, pw = patch_size
+        self.rgb_decoder.eval()
         return self.rgb_decoder(features.reshape(-1, ph, pw, features.shape[-1]))
 
-    def get_nff_outputs(self, ray_bundle: RayBundle, layout: SegmentLayout) -> Dict[str, torch.Tensor]:
-        """Neural-feature-field forward: features [R, C + A], depth [R, 1], accumulation [R, 1]."""
+    def get_nff_outputs(self, ray_bundle: RayBundle, layout: SegmentLayout, train: bool = False,
+                        generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
+        """Neural-feature-field forward: features [R, C + A], depth [R, 1], accumulation [R, 1];
+        in training also the per-round weights and bin edges the losses need, and the lidar
+        carving sums."""
         cfg = self.config
         ray_bundle = self._scale_pixel_area(ray_bundle, layout)
         sky = cfg.sampling.sky_distance
@@ -169,36 +225,185 @@ class NeuRadarModel(nn.Module):
                 else torch.full_like(ray_bundle.pixel_area, sky))
         nears = ray_bundle.nears if ray_bundle.nears is not None else torch.zeros_like(fars)
         ray_bundle = dataclasses.replace(ray_bundle, nears=nears, fars=fars)
+        R = layout.total
+        if train and layout.num_lidar > 0 and "is_lidar" not in ray_bundle.metadata:
+            is_lidar = torch.zeros((R, 1), dtype=torch.bool, device=fars.device)
+            is_lidar[layout.num_cam: layout.num_cam + layout.num_lidar] = True
+            ray_bundle = dataclasses.replace(ray_bundle, metadata={**ray_bundle.metadata, "is_lidar": is_lidar})
 
+        # the random draws come first and in the JAX package's order (flips, then jitter);
+        # a recomputed chunk reuses them
         candidates = None
         if self.n_actors > 0:
             times = (ray_bundle.times[..., 0] if ray_bundle.times is not None
-                     else torch.zeros(layout.total, device=fars.device))
-            candidates = self.dynamic_actors.get_ray_candidates(times, ray_bundle.origins, ray_bundle.directions)
-        return self._nff_core(ray_bundle, candidates)
+                     else torch.zeros(R, device=fars.device))
+            flip_prob = cfg.field.grid.actor.flip_prob
+            candidates = self.dynamic_actors.get_ray_candidates(
+                times, ray_bundle.origins, ray_bundle.directions,
+                flip_generator=generator if train and flip_prob > EPS else None, flip_prob=flip_prob,
+            )
+        jitter = None
+        if train:
+            s = cfg.sampling
+            jitter = draw_jitter(generator, R, (*s.num_proposal_samples, s.num_nerf_samples), s.single_jitter,
+                                 fars.device)
 
-    def _nff_core(self, ray_bundle: RayBundle, candidates: Optional[ActorCandidates]) -> Dict[str, torch.Tensor]:
+        n_chunks = cfg.nff_chunks if cfg.nff_chunks > 1 and R % cfg.nff_chunks == 0 else 1
+        if n_chunks == 1:
+            return self._nff_core(ray_bundle, candidates, jitter, train)
+        size = R // n_chunks
+        outs = []
+        for c in range(n_chunks):
+            sl = slice(c * size, (c + 1) * size)
+            args = (_slice_bundle(ray_bundle, sl), candidates.chunk(sl) if candidates is not None else None,
+                    [j[sl] for j in jitter] if jitter is not None else None, train)
+            if train and torch.is_grad_enabled():
+                outs.append(checkpoint(self._nff_core, *args, use_reentrant=False, preserve_rng_state=False))
+            else:
+                outs.append(self._nff_core(*args))
+        # per-chunk scalars (the carving sums) add up; per-ray tensors concatenate
+        return {k: (sum(o[k] for o in outs) if outs[0][k].dim() == 0 else torch.cat([o[k] for o in outs]))
+                for k in outs[0]}
+
+    def _nff_core(self, ray_bundle: RayBundle, candidates: Optional[ActorCandidates],
+                  jitter: Optional[List[torch.Tensor]] = None, train: bool = False) -> Dict[str, torch.Tensor]:
+        """Per-ray core: sampling -> fields -> K1 compositing -> depth; chunk-shape agnostic."""
         cfg = self.config
         # round i is weighted by proposal field i
         density_fns = [(lambda rs, f=f: f(rs, candidates)) for f in self.proposal_fields]
-        ray_samples, _, _ = proposal_network_sampler(
-            ray_bundle,
-            density_fns,
-            cfg.sampling.num_proposal_samples,
-            cfg.sampling.num_nerf_samples,
-            initial_sampler=lambda rb, n: power_sampler(rb, n, cfg.sampling.power_lambda, cfg.sampling.power_scaling),
-        )
+        with record_function("proposal_sampling"):
+            ray_samples, weights_list, samples_list = proposal_network_sampler(
+                ray_bundle,
+                density_fns,
+                cfg.sampling.num_proposal_samples,
+                cfg.sampling.num_nerf_samples,
+                initial_sampler=lambda rb, n, jitter=None: power_sampler(
+                    rb, n, cfg.sampling.power_lambda, cfg.sampling.power_scaling, jitter),
+                jitter=jitter,
+            )
         ray_samples = _apply_sky_sample(ray_samples, cfg.sampling.sky_distance)
 
-        field_out = self.field(ray_samples, candidates)
-        # K1: weights, sky redistribution and feature render in one pass
-        weights_sky, features, accumulation = composite_sky_fwd(field_out["alpha"][..., 0].contiguous(),
-                                                                field_out["feature"].contiguous())
+        with record_function("field"):
+            field_out = self.field(ray_samples, candidates)
+        # K1: weights, sky redistribution and feature render in one pass (and its backward)
+        with record_function("composite_sky"):
+            weights_sky, features, accumulation = composite_sky(field_out["alpha"][..., 0], field_out["feature"])
         features = torch.cat([features, self._get_appearance_embedding(ray_bundle, features)], dim=-1)
 
-        # the sky sample is left out of the depth
-        depth = render_depth_simple(weights_sky[..., :-1, None], _drop_last_sample(ray_samples))
-        return {"features": features, "depth": depth, "accumulation": accumulation}
+        # the sky sample is left out of the depth and the losses
+        weights_main = weights_sky[..., :-1]
+        samples_main = _drop_last_sample(ray_samples)
+        outputs = {"features": features, "depth": render_depth_simple(weights_main[..., None], samples_main),
+                   "accumulation": accumulation}
+        if not train:
+            return outputs
+        outputs["weights_final"] = weights_main
+        outputs["sdist_final"] = ray_samples_to_sdist(samples_main)
+        for i, (pw, prs) in enumerate(zip(weights_list, samples_list)):
+            outputs[f"weights_prop_{i}"] = pw[..., 0]
+            outputs[f"sdist_prop_{i}"] = ray_samples_to_sdist(prs)
+            outputs[f"prop_depth_{i}"] = render_depth_simple(pw, prs)
+        if "is_lidar" in ray_bundle.metadata:
+            is_lidar = ray_bundle.metadata["is_lidar"]
+            lidar_dist = ray_bundle.metadata["directions_norm"]
+            did_return = ray_bundle.metadata.get("did_return", torch.ones_like(is_lidar))
+            for i, (pw, prs) in enumerate(zip(weights_list, samples_list)):
+                mask = self._not_close_to_lidar(prs, lidar_dist, did_return) & is_lidar
+                outputs[f"prop_carving_sq_sum_{i}"] = torch.sum((pw[..., 0] * mask) ** 2)
+            mask = self._not_close_to_lidar(samples_main, lidar_dist, did_return) & is_lidar
+            outputs["carving_sq_sum"] = torch.sum((weights_main * mask) ** 2)
+        return outputs
+
+    def _not_close_to_lidar(self, ray_samples: RaySamples, lidar_dist: torch.Tensor,
+                            did_return: torch.Tensor) -> torch.Tensor:
+        """[r, S] mask of the samples away from the measured lidar return (or, for a ray
+        without a return, beyond the non-return distance)."""
+        conf = self.config.loss
+        sample_dist = (ray_samples.frustums.starts[..., 0] + ray_samples.frustums.ends[..., 0]) * 0.5
+        close_to_hit = torch.abs(lidar_dist - sample_dist) < conf.carving_epsilon
+        in_range = sample_dist < conf.non_return_lidar_distance
+        return ~torch.where(did_return, close_to_hit, in_range)
+
+    def loss_and_metrics(self, ray_bundle: RayBundle, batch: Dict[str, torch.Tensor], layout: SegmentLayout,
+                         train: bool = True, generator: Optional[torch.Generator] = None):
+        """Forward and the loss terms of the JAX package's loss_and_metrics (without VGG and the
+        camera-optimizer regularizer). Returns (total, loss_dict, metrics, outputs); the total is
+        the sum of loss_dict in its insertion order."""
+        outputs = self.get_outputs(ray_bundle, layout, train, generator)
+        with record_function("losses"):
+            return self._losses(outputs, ray_bundle, batch, layout, train)
+
+    def _losses(self, outputs, ray_bundle, batch, layout, train):
+        cfg = self.config
+        conf = cfg.loss
+        loss_dict: Dict[str, torch.Tensor] = {}
+        metrics: Dict[str, torch.Tensor] = {}
+
+        if "rgb" in outputs and "image" in batch:
+            image = batch["image"]
+            if image.dtype == torch.uint8:
+                image = image.float() / 255.0
+            rgb = outputs["rgb"]
+            loss_dict["rgb_loss"] = torch.mean((image - rgb) ** 2) * conf.rgb_mult
+            metrics["psnr"] = -10.0 * torch.log10(torch.mean((image - rgb.detach()) ** 2))
+
+        if layout.num_lidar > 0 and "lidar_distance" in batch:
+            did_return = batch["did_return"][..., 0]
+            term_depth = batch["lidar_distance"]
+            gt_intensity = batch["lidar_intensity"]
+            pred_depth = layout.lidar(outputs["depth"])
+            ray_drop_logits = outputs["ray_drop_logits"]
+            pred_intensity = outputs["intensity"]
+            with torch.no_grad():
+                metrics["depth_median_l2"] = _masked_median((pred_depth - term_depth)[..., 0] ** 2, did_return)
+                metrics["depth_mean_rel_l2"] = masked_mean(((pred_depth - term_depth) / term_depth)[..., 0] ** 2,
+                                                           did_return)
+                metrics["intensity_rmse"] = torch.sqrt(masked_mean((pred_intensity - gt_intensity)[..., 0] ** 2,
+                                                                   did_return))
+                metrics["ray_drop_accuracy"] = torch.mean(
+                    ((torch.sigmoid(ray_drop_logits[..., 0]) > 0.5) == ~did_return).float())
+            if train:
+                nonret = conf.non_return_lidar_distance
+                ur_loss = _depth_l1_with_nonreturns(pred_depth, term_depth, did_return, nonret,
+                                                    conf.non_return_loss_mult)
+                qmask = (ur_loss < torch.quantile(ur_loss.detach(), conf.quantile_threshold))[..., 0]
+                depth_loss = masked_mean(ur_loss[..., 0], qmask)
+                loss_dict["depth_loss"] = conf.depth_mult * depth_loss
+                metrics["depth_loss"] = depth_loss.detach()
+                loss_dict["intensity_loss"] = conf.intensity_mult * masked_mean(
+                    (gt_intensity - pred_intensity)[..., 0] ** 2, qmask & did_return)
+                loss_dict["ray_drop_loss"] = conf.ray_drop_loss_mult * torch.mean(
+                    binary_cross_entropy_with_logits(ray_drop_logits[..., 0], (~did_return).float()))
+                n_lidar = float(layout.num_lidar)
+                loss_dict["carving_loss"] = conf.carving_mult * outputs["carving_sq_sum"] / n_lidar
+                prop_d_mult = conf.prop_lidar_loss_mult * conf.depth_mult
+                prop_c_mult = conf.prop_lidar_loss_mult * conf.carving_mult
+                for i in range(cfg.num_proposal_rounds):
+                    p_loss = _depth_l1_with_nonreturns(layout.lidar(outputs[f"prop_depth_{i}"]), term_depth,
+                                                       did_return, nonret, conf.non_return_loss_mult)
+                    loss_dict[f"depth_loss_{i}"] = prop_d_mult * torch.mean(p_loss)
+                    loss_dict[f"carving_loss_{i}"] = prop_c_mult * outputs[f"prop_carving_sq_sum_{i}"] / n_lidar
+
+        if "radar_output" in outputs and "radar_gt" in batch:
+            radar_loss, _ = radar_utils.calculate_radar_loss(
+                batch["radar_gt"], batch["radar_gt_mask"], outputs["radar_output"], loss_type=conf.radar_loss_type,
+                training=train, assignment=conf.radar_assignment)
+            metrics["radar_loss"] = radar_loss.detach()
+            loss_dict["radar_loss"] = conf.radar_mult * radar_loss
+
+        if train:
+            n = cfg.num_proposal_rounds
+            sdist_list = [outputs[f"sdist_prop_{i}"] for i in range(n)] + [outputs["sdist_final"]]
+            wl = [outputs[f"weights_prop_{i}"] for i in range(n)] + [outputs["weights_final"]]
+            loss_dict["interlevel_loss"] = conf.interlevel_loss_mult * zipnerf_interlevel_loss_sdist(sdist_list, wl)
+            dist = distortion_loss_sdist(sdist_list[-1], wl[-1])
+            metrics["distortion"] = dist.detach()
+            loss_dict["distortion_loss"] = conf.distortion_loss_mult * dist
+
+        total = torch.zeros((), device=ray_bundle.origins.device)
+        for v in loss_dict.values():
+            total = total + v
+        return total, loss_dict, metrics, outputs
 
     def _scale_pixel_area(self, ray_bundle: RayBundle, layout: SegmentLayout) -> RayBundle:
         """Camera rays render at 1/u resolution: their footprint grows by u^2."""
@@ -254,3 +459,30 @@ def _drop_last_sample(ray_samples: RaySamples) -> RaySamples:
         spacing_starts=None if ray_samples.spacing_starts is None else ray_samples.spacing_starts[..., :-1, :],
         spacing_ends=None if ray_samples.spacing_ends is None else ray_samples.spacing_ends[..., :-1, :],
     )
+
+
+def _slice_bundle(rb: RayBundle, sl: slice) -> RayBundle:
+    def cut(x):
+        return None if x is None else x[sl]
+
+    return RayBundle(origins=rb.origins[sl], directions=rb.directions[sl], pixel_area=rb.pixel_area[sl],
+                     nears=cut(rb.nears), fars=cut(rb.fars), times=cut(rb.times),
+                     camera_indices=cut(rb.camera_indices), metadata={k: v[sl] for k, v in rb.metadata.items()})
+
+
+def _depth_l1_with_nonreturns(pred, target, did_return, nonret_dist: float, nonret_mult: float) -> torch.Tensor:
+    """L1 depth loss; a ray without a return is pulled out to at least nonret_dist, at nonret_mult weight."""
+    dr = did_return[..., None]
+    tgt = torch.where(dr, target, torch.clamp(pred.detach(), min=nonret_dist))
+    loss = torch.abs(tgt - pred)
+    return torch.where(dr, loss, loss * nonret_mult)
+
+
+def _masked_median(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """Median of x over mask (the mean of the two middle values for an even count), 0 when empty."""
+    vals = torch.sort(torch.where(mask, x, torch.full_like(x, float("inf")))).values
+    n = torch.sum(mask)
+    last = x.shape[0] - 1
+    lo = vals[torch.clamp((n - 1) // 2, 0, last)]
+    hi = vals[torch.clamp(n // 2, 0, last)]
+    return torch.where(n > 0, (lo + hi) / 2, torch.zeros_like(lo))

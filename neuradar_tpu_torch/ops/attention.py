@@ -1,56 +1,176 @@
-"""Fused self-attention for the radar encoder (kernel K2, forward).
+"""Fused self-attention for the radar encoder (kernel K2, forward and backward).
 
 ``self_attention_fwd`` computes softmax(q k^T * D^-1/2) v over q, k, v
-[B, S, D] (heads folded into B). On a CUDA tensor it launches the
-hand-written kernel in ``csrc/attention.cu``, which never writes the [S, S]
-scores out; on a CPU tensor it runs ``attention_reference``, the plain
-formulation of ``reference_attention`` in the JAX package's ops/attention.py.
-Only dropout rate 0 (the eval path) is implemented on the card.
+[B, S, D] (heads folded into B), with optional dropout on the probabilities,
+and ``self_attention_bwd`` its gradients. On CUDA tensors they launch the
+hand-written kernels in ``csrc/attention.cu``, which never write the [S, S]
+scores out; on CPU tensors they run the plain versions: ``attention_reference``
+(the formulation of ``reference_attention`` in the JAX package's
+ops/attention.py, plus the dropout mask) and autograd through it.
+``self_attention`` is the differentiable entry point.
+
+The dropout keep mask is a pure function of (seed, batch index, query row,
+key column), computed by ``keep_mask`` with int64 arithmetic masked to 32
+bits; the kernels compute the same bits in uint32, so the card and the CPU
+drop the same entries, and the forward and backward agree by construction.
 """
 
 from __future__ import annotations
+
+from typing import Tuple
 
 import torch
 
 from neuradar_tpu_torch.ops import build
 
 _HEAD_DIMS = (16, 32, 48, 64)
+_M32 = 0xFFFFFFFF
 
 
-def attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """Plain PyTorch K2: scores (scaled by D^-1/2) materialized, softmax, weighted sum in float32."""
-    s = torch.einsum("bqd,bkd->bqk", q.float() * q.shape[-1] ** -0.5, k.float())
-    p = torch.softmax(s, dim=-1)
-    return torch.einsum("bqk,bkd->bqd", p, v.float()).to(q.dtype)
+def _mul32(x: torch.Tensor, c: int) -> torch.Tensor:
+    """(x * c) mod 2^32 for int64 x in [0, 2^32), without int64 overflow."""
+    lo, hi = c & 0xFFFF, c >> 16
+    return (x * lo + (((x * hi) & 0xFFFF) << 16)) & _M32
 
 
-def self_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, dropout_rate: float = 0.0) -> torch.Tensor:
-    """K2 forward: [B, S, D] -> [B, S, D], scores scaled by D^-1/2."""
-    if all(t.device.type == "cpu" for t in (q, k, v)):
-        if dropout_rate > 0.0:
-            raise NotImplementedError("attention dropout comes with the backward kernel")
-        return attention_reference(q, k, v)
-    if q.device.type != "cuda" or k.device != q.device or v.device != q.device:
-        raise ValueError(f"self_attention_fwd: tensors on {q.device}, {k.device}, {v.device}")
+def _fmix32(x: torch.Tensor) -> torch.Tensor:
+    """murmur3's 32-bit finalizer (the constants of the JAX package's keep mask)."""
+    x = x ^ (x >> 16)
+    x = _mul32(x, 0x7FEB352D)
+    x = x ^ (x >> 15)
+    x = _mul32(x, 0x846CA68B)
+    return x ^ (x >> 16)
+
+
+def dropout_threshold(rate: float) -> int:
+    """An entry is kept when its 32-bit hash is >= this threshold; 0 means no dropout."""
+    return min(int(rate * 4294967296.0), 4294967295) if rate > 0.0 else 0
+
+
+def keep_mask(seed: int, B: int, S: int, rate: float, device=None) -> torch.Tensor:
+    """Boolean keep mask [B, S, S] of (seed, b, query, key); independent of any tiling."""
+    dev = torch.device(device) if device is not None else torch.device("cpu")
+    streams = _fmix32((seed + _mul32(torch.arange(B, dtype=torch.int64, device=dev), 0x27D4EB2F)) & _M32)
+    idx = torch.arange(S, dtype=torch.int64, device=dev)
+    qk = (_mul32(idx, 0x9E3779B9)[:, None] + _mul32(idx, 0x85EBCA6B)[None, :]) & _M32  # [S, S]
+    thresh = dropout_threshold(rate)
+    # one scan at a time bounds the int64 temporaries to [S, S]
+    return torch.stack([_fmix32((qk + stream) & _M32) >= thresh for stream in streams])
+
+
+def attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, seed: int = 0,
+                        dropout_rate: float = 0.0) -> torch.Tensor:
+    """Plain PyTorch K2: scores (scaled by D^-1/2) materialized, softmax, dropout, weighted sum
+    in float32 (float64 stays float64)."""
+    p = torch.softmax(_scores(q, k), dim=-1)
     if dropout_rate > 0.0:
-        raise NotImplementedError("self_attention_fwd runs at dropout rate 0 only")
-    if any(t.dtype != torch.float32 for t in (q, k, v)):
-        raise TypeError(f"self_attention_fwd takes float32, got {q.dtype}, {k.dtype}, {v.dtype}")
-    if q.dim() != 3 or k.shape != q.shape or v.shape != q.shape:
-        raise ValueError(f"self_attention_fwd: q {tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)}")
+        p = p * keep_mask(seed, q.shape[0], q.shape[1], dropout_rate, q.device) / (1.0 - dropout_rate)
+    return torch.einsum("bqk,bkd->bqd", p, v.to(p.dtype)).to(q.dtype)
+
+
+def _scores(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    dtype = torch.promote_types(q.dtype, torch.float32)
+    return torch.einsum("bqd,bkd->bqk", q.to(dtype) * q.shape[-1] ** -0.5, k.to(dtype))
+
+
+def attention_bwd_reference(q, k, v, dout, seed: int = 0, dropout_rate: float = 0.0):
+    """Plain PyTorch K2 backward: autograd through ``attention_reference``."""
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+        out = attention_reference(*leaves, seed=seed, dropout_rate=dropout_rate)
+        return torch.autograd.grad(out, leaves, dout)
+
+
+def _check(name: str, tensors, shape) -> None:
+    device = tensors[0].device
+    if device.type != "cuda" or any(t.device != device for t in tensors):
+        raise ValueError(f"{name}: tensors on {[str(t.device) for t in tensors]}")
+    if any(t.dtype != torch.float32 for t in tensors):
+        raise TypeError(f"{name} takes float32, got {[t.dtype for t in tensors]}")
+    if len(shape) != 3 or any(tuple(t.shape) != tuple(shape) for t in tensors):
+        raise ValueError(f"{name}: shapes {[tuple(t.shape) for t in tensors]}")
+    if shape[-1] not in _HEAD_DIMS:
+        raise ValueError(f"{name} is built for head widths {_HEAD_DIMS}, got {shape[-1]}")
+    if not all(t.is_contiguous() and t.data_ptr() % 16 == 0 for t in tensors):
+        raise ValueError(f"{name} takes contiguous, 16-byte aligned tensors")
+
+
+def _dropout_args(seed: int, rate: float):
+    if not 0.0 <= rate < 1.0:
+        raise ValueError(f"dropout rate {rate} outside [0, 1)")
+    thresh = dropout_threshold(rate)
+    return seed & _M32, thresh, (1.0 / (1.0 - rate)) if thresh else 1.0
+
+
+def self_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, dropout_rate: float = 0.0,
+                       seed: int = 0, return_lse: bool = False):
+    """K2 forward: [B, S, D] -> [B, S, D] (and the row log-sum-exp [B, S] with ``return_lse``)."""
+    if all(t.device.type == "cpu" for t in (q, k, v)):
+        out = attention_reference(q, k, v, seed, dropout_rate)
+        if not return_lse:
+            return out
+        return out, torch.logsumexp(_scores(q, k), dim=-1)
+    _check("self_attention_fwd", (q, k, v), q.shape)
     B, S, D = q.shape
-    if D not in _HEAD_DIMS:
-        raise ValueError(f"self_attention_fwd is built for head widths {_HEAD_DIMS}, got {D}")
-    if not all(t.is_contiguous() and t.data_ptr() % 16 == 0 for t in (q, k, v)):
-        raise ValueError("self_attention_fwd takes contiguous, 16-byte aligned tensors")
+    seed32, thresh, inv_keep = _dropout_args(seed, dropout_rate)
     lib = build.load()
     out = torch.empty_like(q)
+    lse = torch.empty((B, S), dtype=q.dtype, device=q.device) if return_lse else None
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    code = lib.self_attention_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, S, D, D**-0.5,
-                                  stream)
+    code = lib.self_attention_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                                  lse.data_ptr() if lse is not None else None, B, S, D, D**-0.5,
+                                  seed32, thresh, inv_keep, stream)
     build.check(code, "self_attention_fwd")
     self_attention_fwd.launches += 1
-    return out
+    return (out, lse) if return_lse else out
 
 
 self_attention_fwd.launches = 0
+
+
+def self_attention_bwd(q, k, v, out, dout, lse, dropout_rate: float = 0.0,
+                       seed: int = 0) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K2 backward: (dq, dk, dv), recomputing P from q, k and the forward's lse."""
+    if all(t.device.type == "cpu" for t in (q, k, v, dout)):
+        return attention_bwd_reference(q, k, v, dout, seed, dropout_rate)
+    _check("self_attention_bwd", (q, k, v, out, dout), q.shape)
+    B, S, D = q.shape
+    if lse.device != q.device or lse.dtype != torch.float32 or tuple(lse.shape) != (B, S) or not lse.is_contiguous():
+        raise ValueError(f"self_attention_bwd: lse {tuple(lse.shape)} {lse.dtype} on {lse.device}")
+    seed32, thresh, inv_keep = _dropout_args(seed, dropout_rate)
+    lib = build.load()
+    delta = torch.empty((B, S), dtype=q.dtype, device=q.device)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    code = lib.self_attention_bwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(),
+                                  lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                                  B, S, D, D**-0.5, seed32, thresh, inv_keep, stream)
+    build.check(code, "self_attention_bwd")
+    self_attention_bwd.launches += 1
+    return dq, dk, dv
+
+
+self_attention_bwd.launches = 0
+
+
+class _SelfAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, seed: int, dropout_rate: float):
+        out, lse = self_attention_fwd(q, k, v, dropout_rate, seed, return_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.seed, ctx.dropout_rate = seed, dropout_rate
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = self_attention_bwd(q, k, v, out, dout.contiguous(), lse, ctx.dropout_rate, ctx.seed)
+        return dq, dk, dv, None, None
+
+
+def self_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, seed: int = 0,
+                   dropout_rate: float = 0.0) -> torch.Tensor:
+    """Differentiable K2; ``seed`` and ``dropout_rate`` are not differentiated."""
+    if not torch.is_grad_enabled() or not any(t.requires_grad for t in (q, k, v)):
+        return self_attention_fwd(q, k, v, dropout_rate, seed)
+    return _SelfAttention.apply(q.contiguous(), k.contiguous(), v.contiguous(), seed, dropout_rate)

@@ -3,8 +3,10 @@
 The kernels are compiled with nvcc for sm_90a into ``build/kernels/`` at the
 repository root, at first use, and bound with ctypes: each ``extern "C"``
 launcher takes device pointers and the stream as ``c_void_p`` and returns a
-cudaError_t code. The library's file name carries a hash of the sources, so
-an edited source is rebuilt and a stale library is never loaded.
+cudaError_t code. Each source is compiled to an object by its own nvcc, all
+started together, and the objects are linked into one library. The
+library's file name carries a hash of the sources, so an edited source is
+rebuilt and a stale library is never loaded.
 """
 
 from __future__ import annotations
@@ -20,15 +22,22 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 SOURCES = ("composite_sky.cu", "attention.cu")
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC")
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+COMPILE_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_U = ctypes.c_uint
+_F = ctypes.c_float
 _SIGNATURES = {
     # alpha, feats, w_sky, features, accum, R, S, C, stream
     "composite_sky_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
-    # q, k, v, out, B, S, D, scale, stream
-    "self_attention_fwd": [_P, _P, _P, _P, _I, _I, _I, ctypes.c_float, _P],
+    # alpha, feats, dwsky, df, daccum, dalpha, dfeats, R, S, C, stream
+    "composite_sky_bwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    # q, k, v, out, lse, B, S, D, scale, seed, thresh, inv_keep, stream
+    "self_attention_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _U, _U, _F, _P],
+    # q, k, v, out, dout, lse, delta, dq, dk, dv, B, S, D, scale, seed, thresh, inv_keep, stream
+    "self_attention_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _U, _U, _F, _P],
 }
 
 _lib = None
@@ -49,8 +58,18 @@ def library_path() -> Path:
     digest = hashlib.sha256()
     for name in SOURCES:
         digest.update((CSRC / name).read_bytes())
-    digest.update(" ".join(NVCC_FLAGS).encode())
+    digest.update(" ".join(COMPILE_FLAGS).encode())
     return BUILD_DIR / f"libneuradar_kernels_{digest.hexdigest()[:16]}.so"
+
+
+def _run_all(cmds) -> list:
+    """Start every command at once, wait for all; raise with the first failure's stderr."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True) for c in cmds]
+    logs = [p.communicate() for p in procs]
+    for p, (_, err) in zip(procs, logs):
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({p.returncode}):\n{err}")
+    return [err for _, err in logs]
 
 
 def build(verbose: bool = False) -> Path:
@@ -59,21 +78,17 @@ def build(verbose: bool = False) -> Path:
     if lib.exists():
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    # build to a private name and rename: concurrent builders never see a half-written library
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []), "-o", tmp,
-           *[str(CSRC / s) for s in SOURCES]]
-    try:
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
+    nvcc = _nvcc()
+    # build to private names and rename: concurrent builders never see a half-written library
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [str(Path(tmp) / (Path(s).stem + ".o")) for s in SOURCES]
+        ptxas = ["-Xptxas", "-v"] if verbose else []
+        logs = _run_all([[nvcc, *COMPILE_FLAGS, *ptxas, "-c", "-o", o, str(CSRC / s)] for s, o in zip(SOURCES, objs)])
+        out = str(Path(tmp) / lib.name)
+        _run_all([[nvcc, *ARCH_FLAGS, "-shared", "-o", out, *objs]])
         if verbose:
-            print(proc.stderr, end="")
-        os.replace(tmp, lib)
-    finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
+            print("".join(logs), end="")
+        os.replace(out, lib)
     return lib
 
 

@@ -1,6 +1,8 @@
-"""AD NeuRadar pipeline: sensor tables + model + the render entry points
-(port of the JAX package's pipelines/ad_neuradar_pipeline.py: the constructor,
-``render_camera``, ``render_lidar`` and ``render_radar``).
+"""AD NeuRadar pipeline: datamanager + model, the train and eval losses, and
+the render entry points (port of the JAX package's
+pipelines/ad_neuradar_pipeline.py: the constructor, ``make_train_loss_fn``,
+``make_eval_loss_fn``, ``render_camera``, ``render_lidar`` and
+``render_radar``).
 
 Everything runs on one explicit ``device``; there is no fallback to another.
 The render methods return tensors on that device (the JAX package returns
@@ -10,13 +12,19 @@ numpy arrays), apart from the host-side lidar ``points`` and ``num_valid``.
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Dict, Sequence, Union
+from typing import Callable, Dict, Sequence, Union
 
 import numpy as np
 import torch
 
 from neuradar_tpu_torch.cameras.cameras import generate_camera_rays
-from neuradar_tpu_torch.data.datamanager import build_sensor_tables, merge_modality_bundles
+from neuradar_tpu_torch.data.datamanager import (
+    ADDataManager,
+    ADDataManagerConfig,
+    batch_to_device,
+    build_train_bundle,
+    merge_modality_bundles,
+)
 from neuradar_tpu_torch.data.dataparsers.base import DataparserOutputs
 from neuradar_tpu_torch.model_components.dynamic_actors import trajectories_from_dicts
 from neuradar_tpu_torch.models.neuradar import NeuRadarModel, NeuRadarModelConfig, SceneMeta, SegmentLayout
@@ -25,18 +33,22 @@ from neuradar_tpu_torch.utils.params import init_params
 
 @dataclass
 class ADNeuRadarPipelineConfig:
+    datamanager: ADDataManagerConfig = field(default_factory=ADDataManagerConfig)
     model: NeuRadarModelConfig = field(default_factory=NeuRadarModelConfig)
 
 
 class ADNeuRadarPipeline:
-    """Owns the sensor tables and the model (eval mode, seeded weights)."""
+    """Owns the datamanager (with the device sensor tables) and the model (seeded weights)."""
 
     def __init__(self, config: ADNeuRadarPipelineConfig, outputs: DataparserOutputs,
                  device: Union[str, torch.device] = "cuda", seed: int = 0):
         self.config = config
         self.outputs = outputs
         self.device = torch.device(device)
-        self.tables = build_sensor_tables(outputs, self.device)
+        self.datamanager = ADDataManager(outputs, config.datamanager, self.device,
+                                         rgb_upsample_factor=config.model.rgb_upsample_factor)
+        self.tables = self.datamanager.tables
+        self.layout = self.datamanager.layout
         scene = SceneMeta(
             static_scale=float(np.abs(outputs.scene_box.aabb).max()),
             duration=float(outputs.duration),
@@ -46,6 +58,34 @@ class ADNeuRadarPipeline:
             self.model = NeuRadarModel(config.model, scene, trajectories_from_dicts(outputs.trajectories))
         self.model.to(self.device).eval()
         init_params(self.model, seed)
+
+    def make_train_loss_fn(self) -> Callable:
+        """loss_fn(host_batch, generator) -> (total, loss_dict, metrics): the training forward
+        and losses of one batch, differentiable in the model's parameters; batch-norm
+        statistics are updated on the way."""
+        u = self.config.model.rgb_upsample_factor
+
+        def loss_fn(batch: Dict[str, np.ndarray], generator: torch.Generator):
+            dev = batch_to_device(batch, self.device)
+            bundle = build_train_bundle(self.tables, dev, self.layout, u)
+            total, loss_dict, metrics, _ = self.model.loss_and_metrics(bundle, dev, self.layout, True, generator)
+            return total, loss_dict, metrics
+
+        return loss_fn
+
+    def make_eval_loss_fn(self) -> Callable:
+        """eval_loss(host_batch) -> (total, loss_dict, metrics): the same graph in eval
+        (deterministic sampling, no dropout, running batch-norm statistics), no gradients."""
+        u = self.config.model.rgb_upsample_factor
+
+        @torch.no_grad()
+        def eval_loss(batch: Dict[str, np.ndarray]):
+            dev = batch_to_device(batch, self.device)
+            bundle = build_train_bundle(self.tables, dev, self.layout, u)
+            total, loss_dict, metrics, _ = self.model.loss_and_metrics(bundle, dev, self.layout, False)
+            return total, loss_dict, metrics
+
+        return eval_loss
 
     @torch.inference_mode()
     def render_camera(self, cam_idx: int) -> Dict[str, torch.Tensor]:

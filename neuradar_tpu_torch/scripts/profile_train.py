@@ -1,0 +1,114 @@
+"""Profile the port's neuradar-synthetic train step at full width on one GPU.
+
+    python -m neuradar_tpu_torch.scripts.profile_train [--nff-chunks 1] [--steps 5] [--out FILE]
+
+Builds the seeded trainer at the preset's full width and batch, runs one
+warm-up step, times ``--steps`` untraced steps (host clock around a
+synchronized step; median, min, max), then traces one more step with
+torch.profiler. It prints, as JSON lines: the wall times and peak memory;
+the traced step's device busy time (the union of its kernel intervals) and
+idle share (1 - busy / wall); the device time under each labelled range
+(train/forward, train/optimizer, and the model's layers: proposal_sampling,
+field, hash_encode, composite_sky, rgb_decoder, radar_decoder, losses; a
+layer's time sums its forward and, with nff_chunks > 1, its recompute in the
+backward pass); the backward's device time, which is the busy time less the
+forward and the optimizer (autograd runs the backward on its own device
+thread, outside the step's labelled ranges); and the kernels with the most
+device time. ``--out`` also writes the whole record as one JSON file. Needs CUDA.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import statistics
+import subprocess
+import sys
+import time
+
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+from neuradar_tpu_torch.configs.method_configs import method_configs
+from neuradar_tpu_torch.engine.trainer import Trainer
+
+LABELS = ("train/forward", "train/optimizer", "proposal_sampling", "field", "hash_encode", "composite_sky",
+          "rgb_decoder", "radar_decoder", "losses")
+
+
+def _busy_ms(events) -> float:
+    """Union of the device kernel intervals, in ms."""
+    spans = sorted((e.time_range.start, e.time_range.end) for e in events
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    busy, cur_s, cur_e = 0.0, None, None
+    for s, e in spans:
+        if cur_e is None or s > cur_e:
+            if cur_e is not None:
+                busy += cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    if cur_e is not None:
+        busy += cur_e - cur_s
+    return busy / 1e3  # us -> ms
+
+
+def _step(trainer: Trainer) -> float:
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    trainer.train_step()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--nff-chunks", type=int, default=1)
+    ap.add_argument("--steps", type=int, default=5)
+    ap.add_argument("--top", type=int, default=25)
+    ap.add_argument("--out", default=None)
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("profile_train: no CUDA device", file=sys.stderr)
+        return 1
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    cfg = method_configs["neuradar-synthetic"]()
+    cfg.pipeline.model.nff_chunks = args.nff_chunks
+    trainer = Trainer(cfg, cfg.dataparser.setup().get_dataparser_outputs(), "cuda")
+    trainer.setup()
+    rays = trainer.pipeline.layout.total
+    record = {"card": smi, "rays_per_step": rays, "nff_chunks": args.nff_chunks,
+              "warmup_s": _step(trainer)}
+    torch.cuda.reset_peak_memory_stats()
+    walls = [_step(trainer) for _ in range(args.steps)]
+    record.update(wall_s_median=statistics.median(walls), wall_s_min=min(walls), wall_s_max=max(walls),
+                  rays_per_s_median=rays / statistics.median(walls),
+                  peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30)
+    print(json.dumps({"phase": "wall", **record}), flush=True)
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        traced_wall = _step(trainer)
+    events = prof.events()
+    busy = _busy_ms(events)
+    averages = prof.key_averages()
+    labels = {a.key: a.device_time_total / 1e3 for a in averages if a.key in LABELS}
+    kernels = sorted((a for a in averages if a.device_type == torch.autograd.DeviceType.CUDA),
+                     key=lambda a: a.self_device_time_total, reverse=True)[:args.top]
+    trace = {"traced_wall_ms": traced_wall * 1e3, "device_busy_ms": busy,
+             "idle_share": 1.0 - busy / (traced_wall * 1e3), "label_device_ms": labels,
+             "backward_device_ms": busy - labels.get("train/forward", 0.0) - labels.get("train/optimizer", 0.0),
+             "top_kernels": [{"name": a.key[:120], "device_ms": a.self_device_time_total / 1e3, "calls": a.count}
+                             for a in kernels]}
+    print(json.dumps({"phase": "trace", **trace}), flush=True)
+    trainer.shutdown()
+    if args.out:
+        with open(args.out, "w") as f:
+            json.dump({**record, **trace}, f, indent=1)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,10 +1,14 @@
-"""Kernels K1 (composite_sky_fwd) and K2 (self_attention_fwd) of the port.
+"""Kernels K1 (composite_sky_fwd / _bwd) and K2 (self_attention_fwd / _bwd) of the port.
 
 On the CPU the wrappers run their plain PyTorch versions, which are held here
 against the JAX package: K1 against fused_composite_sky in interpret mode and
-against the model's XLA formulation, K2 against reference_attention and
-fused_self_attention in interpret mode. The tests marked ``cuda`` hold each
-CUDA kernel against its plain version on the card and skip without one.
+against the model's XLA formulation, forward and VJP; K2 against
+reference_attention and fused_self_attention in interpret mode, forward and
+VJP at dropout 0. With dropout the plain version is tested on its own
+(gradcheck, determinism per seed, seed sensitivity, keep fraction,
+unbiasedness), as the TPU kernel's own tests do: the two hash different bits.
+The tests marked ``cuda`` hold each CUDA kernel against its plain version on
+the card and skip without one.
 
 JAX is imported inside the fixtures only, so the ``cuda`` tests also run on a
 machine without JAX:
@@ -20,6 +24,11 @@ from neuradar_tpu_torch.ops import volumetric as t_volumetric
 
 K1_TOL = dict(rtol=1e-5, atol=1e-6)
 K2_TOL = dict(rtol=1e-4, atol=1e-5)  # the fused kernels sum the softmax in another order
+# backward: the TPU kernel's suffix sum is total - cumsum, which cancels to an absolute error of a few
+# ulp of the largest suffix (|dalpha| reaches ~10 here); the plain version's is torch's cumprod VJP,
+# the CUDA kernel's a reverse running sum; all float32
+K1_BWD_TOL = dict(rtol=1e-4, atol=1e-4)
+K2_BWD_TOL = dict(rtol=2e-4, atol=2e-5)  # dS sums S products per entry, in three different orders
 
 
 def _k1_inputs(R=300, S=33, C=32, seed=0):
@@ -94,6 +103,85 @@ def test_attention_plain_matches_jax(jax_attention, which):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **K2_TOL)
 
 
+def _k1_cotangents(R, S, C, seed=2):
+    rng = np.random.RandomState(seed)
+    return (rng.normal(size=(R, S)).astype(np.float32), rng.normal(size=(R, C)).astype(np.float32),
+            rng.normal(size=(R, 1)).astype(np.float32))
+
+
+@pytest.mark.parametrize("which", ["pallas_interpret", "xla"])
+def test_composite_sky_bwd_plain_matches_jax(jax_volumetric, which):
+    """jax.vjp of fused_composite_sky in interpret mode reaches _sky_pallas_bwd; daccum is nonzero."""
+    import jax
+
+    fused, xla = jax_volumetric
+    alpha, feats = _k1_inputs(R=200)
+    cots = _k1_cotangents(*feats.shape)
+    fn = (lambda a, f: fused(a, f, True)) if which == "pallas_interpret" else xla
+    _, vjp = jax.vjp(fn, alpha, feats)
+    want = vjp(tuple(cots))
+    got = t_volumetric.composite_sky_bwd(*(torch.from_numpy(x) for x in (alpha, feats, *cots)))
+    for g, w, name in zip(got, want, ("dalpha", "dfeats")):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), **K1_BWD_TOL, err_msg=name)
+
+
+def test_composite_sky_function_backward():
+    """The autograd Function routes to composite_sky_bwd; a missing output gradient counts as zero."""
+    alpha, feats = (torch.from_numpy(x).requires_grad_(True) for x in _k1_inputs(R=50))
+    dwsky, df, _ = (torch.from_numpy(x) for x in _k1_cotangents(50, 33, 32))
+    w_sky, features, _accum = t_volumetric.composite_sky(alpha, feats)
+    torch.autograd.backward((w_sky, features), (dwsky, df))
+    want = t_volumetric.composite_sky_bwd(alpha.detach(), feats.detach(), dwsky, df, torch.zeros(50, 1))
+    torch.testing.assert_close(alpha.grad, want[0], rtol=0, atol=0)
+    torch.testing.assert_close(feats.grad, want[1], rtol=0, atol=0)
+
+
+def test_attention_bwd_plain_matches_jax(jax_attention):
+    """jax.vjp of fused_self_attention in interpret mode reaches _bwd_call; S = 300 pads to 384 there."""
+    import jax
+
+    fused, _ = jax_attention
+    q, k, v = _k2_inputs()
+    dout = np.random.RandomState(5).normal(size=q.shape).astype(np.float32)
+    _, vjp = jax.vjp(lambda a, b, c: fused(a, b, c, 0, 0.0, None, True), q, k, v)
+    want = vjp(dout)
+    got = t_attention.self_attention_bwd(*(torch.from_numpy(x) for x in (q, k, v)), None,
+                                         torch.from_numpy(dout), None)
+    for g, w, name in zip(got, want, ("dq", "dk", "dv")):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), **K2_BWD_TOL, err_msg=name)
+
+
+def test_attention_dropout_gradcheck():
+    """Float64 gradcheck of the plain version through the keep mask (the mask is fixed by the seed);
+    fast mode checks the Jacobian along random directions."""
+    rng = np.random.RandomState(6)
+    q, k, v = (torch.from_numpy(rng.normal(size=(2, 7, 16))).requires_grad_(True) for _ in range(3))
+    assert torch.autograd.gradcheck(lambda a, b, c: t_attention.self_attention(a, b, c, 11, 0.3), (q, k, v),
+                                    fast_mode=True)
+
+
+def test_attention_dropout_mask_properties():
+    """Deterministic per seed, different across seeds, keep fraction within 3 sigma of 1 - rate,
+    and a pure function of (seed, b, q, k): a smaller problem is a corner of a larger one."""
+    rate, B, S = 0.1, 2, 300
+    m7 = t_attention.keep_mask(7, B, S, rate)
+    assert torch.equal(m7, t_attention.keep_mask(7, B, S, rate))
+    assert not torch.equal(m7, t_attention.keep_mask(8, B, S, rate))
+    assert not torch.equal(m7[0], m7[1]), "each scan draws its own mask"
+    n = m7.numel()
+    assert abs(m7.float().mean().item() - (1 - rate)) < 3 * (rate * (1 - rate) / n) ** 0.5
+    assert torch.equal(t_attention.keep_mask(7, 1, 100, rate)[0], m7[0, :100, :100])
+
+
+def test_attention_dropout_unbiased():
+    """Averaged over seeds, dropout leaves the output unchanged (inverted scaling 1 / (1 - rate))."""
+    q, k, v = (torch.from_numpy(x) for x in _k2_inputs(B=1, S=64, D=16))
+    want = t_attention.attention_reference(q, k, v)
+    mean = torch.stack([t_attention.self_attention_fwd(q, k, v, 0.2, seed) for seed in range(200)]).mean(0)
+    assert (mean - want).abs().mean() < 0.1 * want.abs().mean()
+    assert not torch.allclose(t_attention.self_attention_fwd(q, k, v, 0.2, 1), want)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("R", [1, 37, 4096])
 def test_composite_sky_kernel_matches_plain(cuda, R):
@@ -114,10 +202,59 @@ def test_attention_kernel_matches_plain(cuda, B, S, D):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("R,C", [(1, 32), (37, 40), (4096, 32)])
+def test_composite_sky_bwd_kernel_matches_plain(cuda, R, C):
+    alpha, feats = (torch.from_numpy(x).to(cuda) for x in _k1_inputs(R=R, C=C))
+    cots = [torch.from_numpy(x).to(cuda) for x in _k1_cotangents(R, 33, C)]
+    got = t_volumetric.composite_sky_bwd(alpha, feats, *cots)
+    want = t_volumetric.composite_sky_bwd_reference(alpha, feats, *cots)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, **K1_BWD_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,D", [(2, 300, 48), (1, 3531, 48), (3, 5, 32), (1, 64, 16)])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_attention_train_kernels_match_plain(cuda, B, S, D, rate):
+    """Forward with dropout (same seed, same mask as the plain version), its lse, and the backward."""
+    q, k, v = (torch.from_numpy(x).to(cuda) for x in _k2_inputs(B, S, D))
+    dout = torch.from_numpy(np.random.RandomState(5).normal(size=(B, S, D)).astype(np.float32)).to(cuda)
+    out, lse = t_attention.self_attention_fwd(q, k, v, rate, 123, return_lse=True)
+    torch.testing.assert_close(out, t_attention.attention_reference(q, k, v, 123, rate), **K2_TOL)
+    s = torch.einsum("bqd,bkd->bqk", q * D**-0.5, k)
+    torch.testing.assert_close(lse, torch.logsumexp(s, -1), **K2_TOL)
+    got = t_attention.self_attention_bwd(q, k, v, out, dout, lse, rate, 123)
+    want = t_attention.attention_bwd_reference(q, k, v, dout, 123, rate)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, **K2_BWD_TOL)
+
+
+@pytest.mark.cuda
+def test_autograd_functions_on_card_match_cpu(cuda):
+    alpha, feats = _k1_inputs(R=300)
+    cots = _k1_cotangents(300, 33, 32)
+    grads = []
+    for dev in ("cpu", cuda):
+        a, f = (torch.from_numpy(x).to(dev).requires_grad_(True) for x in (alpha, feats))
+        torch.autograd.backward(t_volumetric.composite_sky(a, f), [torch.from_numpy(c).to(dev) for c in cots])
+        grads.append((a.grad.cpu(), f.grad.cpu()))
+    for g, w in zip(*grads):
+        torch.testing.assert_close(g, w, **K1_BWD_TOL)
+    qkv = _k2_inputs(B=2, S=200, D=48)
+    grads = []
+    for dev in ("cpu", cuda):
+        q, k, v = (torch.from_numpy(x).to(dev).requires_grad_(True) for x in qkv)
+        t_attention.self_attention(q, k, v, 5, 0.1).square().sum().backward()
+        grads.append([t.grad.cpu() for t in (q, k, v)])
+    for g, w in zip(*grads):
+        torch.testing.assert_close(g, w, **K2_BWD_TOL)
+
+
+@pytest.mark.cuda
 def test_kernel_wrappers_refuse_what_they_do_not_run(cuda):
     q, k, v = (torch.from_numpy(x).to(cuda) for x in _k2_inputs())
-    with pytest.raises(NotImplementedError):
-        t_attention.self_attention_fwd(q, k, v, dropout_rate=0.1)
+    with pytest.raises(ValueError):
+        t_attention.self_attention_fwd(q, k, v, dropout_rate=1.0)
     with pytest.raises(TypeError):
         t_attention.self_attention_fwd(q.half(), k.half(), v.half())
     alpha, feats = (torch.from_numpy(x).to(cuda) for x in _k1_inputs(R=8))
