@@ -81,10 +81,10 @@ def auction_assignment(cost: torch.Tensor, row_mask: torch.Tensor, eps: float = 
     return torch.where(row_mask, assigned, torch.full_like(assigned, -1))
 
 
-def radar_scan_loss(gt: torch.Tensor, gt_mask: torch.Tensor, prediction: torch.Tensor, assigned: torch.Tensor,
-                    loss_type: str = "nll") -> torch.Tensor:
+def radar_scan_loss(gt: torch.Tensor, gt_mask: torch.Tensor, prediction: torch.Tensor,
+                    assigned: torch.Tensor) -> torch.Tensor:
     """Per-scan multi-Bernoulli loss [N] given the assignment: every component pays -log(1 - r),
-    an associated one instead -log(r) plus its point error; normalized by n_mb."""
+    an associated one instead -log(r) plus its Laplace NLL; normalized by n_mb."""
     N, G, _ = gt.shape
     r, mean, scale = mb_split(prediction)
     n_mb = prediction.shape[-2]
@@ -96,27 +96,15 @@ def radar_scan_loss(gt: torch.Tensor, gt_mask: torch.Tensor, prediction: torch.T
     is_assoc = assoc_gt >= 0
     gt_for_mb = torch.gather(gt, 1, torch.clamp(assoc_gt, min=0)[..., None].expand(N, n_mb, 3))
     unassoc_loss = -torch.log1p(-r)
-    if loss_type == "nll":
-        assoc_loss = -laplace_log_prob(gt_for_mb, mean, scale).sum(-1) - torch.log(r)
-    elif loss_type == "euclidean":
-        assoc_loss = torch.linalg.vector_norm(mean - gt_for_mb, dim=-1) - torch.log(r)
-    else:
-        raise ValueError(loss_type)
+    assoc_loss = -laplace_log_prob(gt_for_mb, mean, scale).sum(-1) - torch.log(r)
     return torch.sum(torch.where(is_assoc, assoc_loss, unassoc_loss), dim=-1) / n_mb
 
 
-def solve_assignment(cost: torch.Tensor, row_mask: torch.Tensor, method: str = "auction") -> torch.Tensor:
-    """Batched assignment: cost [N, P, O], row_mask [N, P] -> [N, P]. The auction is the only
-    solver of the port (the host Hungarian is an eval-path option of the JAX package)."""
-    if method != "auction":
-        raise NotImplementedError(f"assignment {method!r}: the port solves the radar association by auction")
-    return auction_assignment(cost, row_mask)
-
-
-def calculate_radar_loss(gt: torch.Tensor, gt_mask: torch.Tensor, radar_output: torch.Tensor, loss_type: str = "nll",
-                         training: bool = True, assignment: str = "auction") -> Tuple[torch.Tensor, torch.Tensor]:
-    """Mean radar loss over scans and the assignment [N, G]. The association cost is
-    euclidean in training whatever the loss type, and carries no gradient."""
-    cost = radar_cost_matrix(gt, gt_mask, radar_output.detach(), "euclidean" if training else loss_type)
-    assigned = solve_assignment(cost, gt_mask, assignment)
-    return torch.mean(radar_scan_loss(gt, gt_mask, radar_output, assigned, loss_type)), assigned
+def calculate_radar_loss(gt: torch.Tensor, gt_mask: torch.Tensor, radar_output: torch.Tensor,
+                         training: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Mean radar NLL over scans and the auction's assignment [N, G]. The association cost is
+    euclidean in training and the NLL in eval, and carries no gradient. (The JAX package's
+    euclidean loss and host Hungarian solver are options no preset of the port runs.)"""
+    cost = radar_cost_matrix(gt, gt_mask, radar_output.detach(), "euclidean" if training else "nll")
+    assigned = auction_assignment(cost, gt_mask)
+    return torch.mean(radar_scan_loss(gt, gt_mask, radar_output, assigned)), assigned

@@ -71,8 +71,6 @@ class LossSettings:
     ray_drop_loss_mult: float = 0.01
     prop_lidar_loss_mult: float = 0.1
     radar_mult: float = 0.02
-    radar_loss_type: str = "nll"  # nll | euclidean
-    radar_assignment: str = "auction"
 
 
 @dataclass
@@ -386,8 +384,7 @@ class NeuRadarModel(nn.Module):
 
         if "radar_output" in outputs and "radar_gt" in batch:
             radar_loss, _ = radar_utils.calculate_radar_loss(
-                batch["radar_gt"], batch["radar_gt_mask"], outputs["radar_output"], loss_type=conf.radar_loss_type,
-                training=train, assignment=conf.radar_assignment)
+                batch["radar_gt"], batch["radar_gt_mask"], outputs["radar_output"], training=train)
             metrics["radar_loss"] = radar_loss.detach()
             loss_dict["radar_loss"] = conf.radar_mult * radar_loss
 

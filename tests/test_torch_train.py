@@ -213,18 +213,17 @@ def test_auction_assignment_index_equal():
         assert (_np(got)[mask] >= 0).all()
 
 
-@pytest.mark.parametrize("loss_type,training", [("nll", True), ("nll", False), ("euclidean", True)])
-def test_radar_loss(loss_type, training):
-    """calculate_radar_loss (cost, auction, loss): value and gradient; rtol 1e-5 / atol 1e-6."""
-    gt, mask, pred = _radar_inputs(seed=8)
+@pytest.mark.parametrize("training,seed", [(True, 8), (False, 8), (True, 9)])
+def test_radar_loss(training, seed):
+    """calculate_radar_loss (cost, auction, NLL loss): value and gradient; rtol 1e-5 / atol 1e-6."""
+    gt, mask, pred = _radar_inputs(seed=seed)
 
     def j_loss(p):
-        return j_radar.calculate_radar_loss(gt, mask, p, loss_type, training, "auction")
+        return j_radar.calculate_radar_loss(gt, mask, p, "nll", training, "auction")
 
     (want, want_assign), want_g = jax.value_and_grad(j_loss, has_aux=True)(pred)
     tp = torch.from_numpy(pred).requires_grad_(True)
-    got, got_assign = t_radar.calculate_radar_loss(torch.from_numpy(gt), torch.from_numpy(mask), tp, loss_type,
-                                                   training)
+    got, got_assign = t_radar.calculate_radar_loss(torch.from_numpy(gt), torch.from_numpy(mask), tp, training)
     got.backward()
     np.testing.assert_array_equal(_np(got_assign), np.asarray(want_assign))
     _close(got, want, name="radar loss")
@@ -413,10 +412,11 @@ def test_train_step_losses(train_step_results):
 
 def test_train_step_gradients(train_step_results):
     """The gradient of every parameter. Tolerance rtol 1e-3, atol 1e-4 of the parameter's largest
-    gradient: the hash tables receive scatter-added sums in another order, and the gradient
-    passes through exp, pow and divisions whose last ulp differs between the frameworks. The
-    floor of atol is 1e-6: a parameter whose exact gradient is zero (a convolution's bias before
-    batch norm) carries rounding noise of ~1e-8 here and ~1e-7 between the card and the CPU."""
+    gradient, at least 1e-7: the hash tables receive scatter-added sums in another order, and the
+    gradient passes through exp, pow and divisions whose last ulp differs between the frameworks.
+    A parameter whose JAX gradient stays under 1e-6 everywhere is taken as nought to rounding (a
+    convolution's bias before batch norm has an exact gradient of zero, so both sides hold noise
+    alone) and is held to atol 1e-6."""
     (_, _, j_stats, j_grads), (_, _, tpipe) = train_step_results
     model = tpipe.model
     want_model = t_model.NeuRadarModel(model.config, model.scene, _trajectories(tpipe))
@@ -426,7 +426,7 @@ def test_train_step_gradients(train_step_results):
         # a parameter the loss never reaches (the radar angle head) has no gradient; JAX's is 0
         got = p.grad if p.grad is not None else torch.zeros_like(p)
         scale = float(w.abs().max())
-        _close(got, w, dict(rtol=1e-3, atol=max(1e-4 * scale, 1e-6)), name)
+        _close(got, w, dict(rtol=1e-3, atol=1e-6 if scale < 1e-6 else max(1e-4 * scale, 1e-7)), name)
         n += 1
     assert n == len(list(model.parameters()))
     # the batch-norm statistics were updated the flax way
