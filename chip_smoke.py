@@ -14,6 +14,9 @@ Phases, one line each before the final JSON line:
      kernel and path, with CUDA-event times, the bound the card's
      memory rate and float32 peak put on each, and the time of the PyTorch
      library call that computes the same function, where there is one;
+     K3 (fused_composite) and P1 (row_gather), which no path runs, at the
+     shapes of a render chunk and of the gather probe up to a hash grid's
+     table, with the launches of their own checks ("standalone");
   4. render: the neuradar-synthetic model at full width with seeded random
      weights renders 2 camera frames at 720 x 1296, one 16,384-ray lidar scan
      and 4 radar scans; the launch counts show K1 and K2 ran on that path;
@@ -24,7 +27,19 @@ Phases, one line each before the final JSON line:
      four kernels on that path;
   6. agreement: a tiny scene rendered, and one tiny train step (loss terms and
      every gradient), through the kernels on the card against the plain
-     versions on the CPU, with the same weights and the same random draws.
+     versions on the CPU, with the same weights and the same random draws;
+  7. cli_train: the train command (scripts/train.py) on neuradar-synthetic at
+     full width and batch, 6 steps with every eval cadence and checkpoints
+     (all kept), then resumed from its checkpoints to step 8 (only the latest
+     kept), then the eval command (scripts/eval.py) on the run; the events
+     log must show each cadence at its steps, the checkpoints their steps,
+     every metric of the three families must be finite, and K1 and K2 must
+     have launched; the run's logs stay in chiprun_out/runs, its checkpoints
+     are deleted;
+  8. learning: scripts/validate_learning.py at the tiny scale, 300 steps on
+     the card, must print LEARNING CHECK: PASS; its first- and last-quarter
+     means are printed beside those of the JAX package's CPU curve
+     (artifacts/learning_curve_cpu_tiny_20k.json) over its first 300 steps.
 The line before the last lists every kernel as JSON; the last line is
 {"ok": true, "device": {...}}. Any failure raises, and the script exits
 non-zero without printing them.
@@ -32,11 +47,15 @@ non-zero without printing them.
 
 from __future__ import annotations
 
+import gc
 import json
+import math
+import shutil
 import statistics
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import torch
 import torch.nn.functional as F
@@ -45,7 +64,7 @@ from neuradar_tpu_torch.configs.method_configs import method_configs
 from neuradar_tpu_torch.data.datamanager import ADDataManagerConfig
 from neuradar_tpu_torch.data.dataparsers.synthetic import SyntheticDataParser, SyntheticDataParserConfig
 from neuradar_tpu_torch.engine.trainer import Trainer
-from neuradar_tpu_torch.ops import build
+from neuradar_tpu_torch.ops import build, gather
 from neuradar_tpu_torch.ops.attention import (
     attention_bwd_reference,
     attention_reference,
@@ -55,10 +74,15 @@ from neuradar_tpu_torch.ops.attention import (
 from neuradar_tpu_torch.ops.volumetric import (
     composite_sky_bwd,
     composite_sky_bwd_reference,
+    composite_reference,
     composite_sky_fwd,
     composite_sky_reference,
+    fused_composite,
 )
 from neuradar_tpu_torch.pipelines.ad_neuradar_pipeline import ADNeuRadarPipeline, ADNeuRadarPipelineConfig
+from neuradar_tpu_torch.scripts import eval as eval_script
+from neuradar_tpu_torch.scripts import train as train_script
+from neuradar_tpu_torch.scripts import validate_learning
 
 K1_TOL = dict(rtol=1e-5, atol=1e-6)
 K2_TOL = dict(rtol=1e-4, atol=1e-5)  # online softmax sums in another order than the plain version
@@ -80,7 +104,8 @@ ZERO_GRAD = 1e-6
 # the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
-KERNELS = (composite_sky_fwd, composite_sky_bwd, self_attention_fwd, self_attention_bwd)
+# the kernels of the render and train paths; K3 (fused_composite) and P1 (row_gather) are on no path
+PATH_KERNELS = (composite_sky_fwd, composite_sky_bwd, self_attention_fwd, self_attention_bwd)
 # The full-width train step runs the per-ray core unchunked, as the preset does: it fits (51 GB
 # peak on an 80 GB card) and is 1.8x faster than 8 chunks recomputed in the backward pass. The
 # tiny train agreement runs 2 recomputed chunks, so the checkpointed path runs on the card too.
@@ -199,6 +224,45 @@ def check_kernels(device: torch.device) -> list:
                  "library_ms": cuda_time_ms(lambda: torch.autograd.grad(lib_out, (qh, kh, vh), dout[:, None],
                                                                           retain_graph=True)),
                  **_bound(4 * (8 * B * S * D + B * S), 10 * B * S * S * D)})
+
+    # K3 at a render chunk's shape with sample midpoints, against its plain version in float64 (as K1)
+    R, S, C = 32768, 33, 32
+    fused_composite.launches = 0
+    alpha = torch.rand((R, S), generator=gen, device=device)
+    feats = torch.randn((R, S, C), generator=gen, device=device)
+    steps = torch.cumsum(torch.rand((R, S), generator=gen, device=device), dim=-1)
+    got = [t.double() for t in fused_composite(alpha, feats, steps)]
+    want = composite_reference(alpha.double(), feats.double(), steps.double())
+    _assert_all_close(got, want, K1_TOL, "K3")
+    rows.append({"name": "fused_composite", **k1, "replaces": "neuradar_tpu/ops/volumetric.py:199",
+                 "path": "standalone", "shape": [R, S, C], "max_abs_err": _max_err(got, want),
+                 "ms": cuda_time_ms(lambda: fused_composite(alpha, feats, steps)),
+                 "plain_ms": cuda_time_ms(lambda: composite_reference(alpha, feats, steps)), "library_ms": None,
+                 **_bound(4 * (R * S * (C + 3) + R * (C + 2)), R * S * (2 * C + 6))})
+    rows[-1]["launches"] = fused_composite.launches
+
+    # P1 at the probe's shape and at one static hash grid's table (8 x 2^22 rows of 4 features, 512 MiB)
+    # with 2^22 random indices; exact. A random row of 16 bytes costs a whole 32-byte sector to read,
+    # so the row also gives the bound by sectors beside the bound by the bytes the function needs.
+    p1 = {"route": "cuda", "source": "neuradar_tpu_torch/csrc/gather.cu"}
+    for T, n_feat, N in ((4096, 8, 1024), (8 * 2**22, 4, 2**22)):
+        gather.row_gather.launches = 0
+        table = torch.randn((T, n_feat), generator=gen, device=device)
+        idx = torch.randint(0, T, (N,), generator=gen, device=device, dtype=torch.int32)
+        got, want = gather.row_gather(table, idx), gather.row_gather_reference(table, idx)
+        _expect(torch.equal(got, want), f"P1 [{T}, {n_feat}] x {N}: the gather differs from its plain version")
+        sector_bytes = N * (math.ceil(n_feat * 4 / 32) * 32 + n_feat * 4 + 4)
+        rows.append({"name": "row_gather", **p1, "replaces": "tools/probe_mosaic_gather.py:34",
+                     "path": "standalone", "shape": [T, n_feat, N], "max_abs_err": float((got - want).abs().max()),
+                     "ms": cuda_time_ms(lambda: gather.row_gather(table, idx)),
+                     # the launch alone, without the wrapper's index check (one host sync)
+                     "kernel_ms": cuda_time_ms(lambda: gather._launch(table, idx)),
+                     "plain_ms": cuda_time_ms(lambda: gather.row_gather_reference(table, idx)),
+                     "library_ms": cuda_time_ms(lambda: torch.index_select(table, 0, idx)),
+                     "sector_bound_ms": sector_bytes / HBM_BYTES_PER_S * 1e3,
+                     **_bound(N * (2 * n_feat * 4 + 4), 0)})
+        rows[-1]["launches"] = gather.row_gather.launches
+        del table, idx, got, want
     return rows
 
 
@@ -382,6 +446,104 @@ def check_tiny_train_agreement(device: torch.device) -> dict:
             "floor_leaves": floor_grad, "total": float(c_total.detach())}
 
 
+CLI_RUNS = Path("chiprun_out/runs")
+CLI_CADENCES = ["--steps_per_eval_batch", "2", "--steps_per_eval_image", "3", "--steps_per_eval_all_images", "4",
+                "--steps_per_eval_all_radars", "4", "--steps_per_save", "3", "--steps_per_log", "1"]
+# the 0-based indices of the steps after which each cadence fires (cadence c: i >= c, i % c == 0),
+# and the step counts the checkpoints carry, in the 6-step run and in its resumption to 8
+CLI_EXPECT = {
+    "first": {"eval_batch": [2, 4], "eval_image": [3], "all_images": [4], "all_radars": [4], "train_log": list(range(6)),
+              "checkpoints": [4, 6]},
+    "resumed": {"eval_batch": [6], "eval_image": [6], "all_images": [], "all_radars": [], "train_log": [6, 7],
+                "checkpoints": [8]},
+}
+LIDAR_METRICS = ("depth_median_l2", "depth_mean_rel_l2", "intensity_rmse", "ray_drop_accuracy", "lidar_chamfer_distance")
+RADAR_METRICS = ("n_empty_pred_radar", "chamfer_distance_radar_mean", "chamfer_distance_radar_median",
+                 "chamfer_distance_radar_std", "emd_distance_radar_mean", "emd_distance_radar_median", "gospa_mean",
+                 "gospa_loc_mean", "gospa_missed_mean", "gospa_false_mean")
+IMAGE_METRICS = ("psnr", "ssim", "lpips_vggsurrogate", "eval_rays_per_sec", "fps")
+
+
+def _cadence_steps(events: list) -> dict:
+    """The steps at which each cadence logged, by the keys it logs."""
+    def steps(key):
+        return sorted({e["step"] for e in events if key in e})
+
+    return {"eval_batch": steps("eval_psnr"), "eval_image": steps("eval_image_psnr"), "all_images": steps("ssim"),
+            "all_radars": steps("gospa_mean"), "train_log": steps("train_rays_per_sec")}
+
+
+def cli_train() -> dict:
+    """The train command at full width: 6 steps with every cadence, resumed to 8, then the eval command."""
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    shutil.rmtree(CLI_RUNS, ignore_errors=True)
+    run_dir = CLI_RUNS / "smoke" / "neuradar-synthetic"
+    base = ["neuradar-synthetic", "--output_dir", str(CLI_RUNS), "--experiment_name", "smoke", *CLI_CADENCES]
+    events_path = run_dir / "logs" / "events.jsonl"
+    report = {}
+    try:
+        seen = 0
+        for run, argv in (("first", [*base, "--max_num_iterations", "6", "--save_only_latest_checkpoint", "false"]),
+                          ("resumed", [*base, "--max_num_iterations", "8", "--load_dir", str(run_dir / "checkpoints")])):
+            t0 = time.perf_counter()
+            _expect(train_script.main(argv) == 0, f"cli_train {run}: the train command failed")
+            seconds = time.perf_counter() - t0
+            gc.collect()
+            torch.cuda.empty_cache()
+            events = [json.loads(line) for line in events_path.read_text().splitlines()]
+            new, seen = events[seen:], len(events)
+            got = _cadence_steps(new)
+            got["checkpoints"] = sorted(int(c.stem.split("-")[1]) for c in (run_dir / "checkpoints").glob("step-*.pt"))
+            step_s = [e["iter_train_time"] for e in new if "iter_train_time" in e]
+            report[run] = {"seconds": seconds, "fired": got, "step_seconds": step_s}
+            _expect(got == CLI_EXPECT[run], f"cli_train {run}: cadences {got}, expected {CLI_EXPECT[run]}")
+            _expect(all(math.isfinite(v) for e in new for k, v in e.items()),
+                    f"cli_train {run}: a logged value is not finite")
+        eval_path = run_dir / "eval_output.json"
+        _expect(eval_script.main(["--load-config", str(run_dir), "--output-path", str(eval_path)]) == 0,
+                "cli_train: the eval command failed")
+        ev = json.loads(eval_path.read_text())
+        results = ev["results"]
+        missing = [k for k in (*IMAGE_METRICS, *LIDAR_METRICS, *RADAR_METRICS) if k not in results]
+        _expect(not missing, f"cli_train eval: metrics missing: {missing}")
+        _expect(all(math.isfinite(v) for v in results.values()), f"cli_train eval: a metric is not finite: {results}")
+        _expect(ev["checkpoint_step"] == 8, f"cli_train eval: loaded step {ev['checkpoint_step']}, expected 8")
+        report["eval"] = {"results": results, "seconds": ev["seconds"], "checkpoint_step": ev["checkpoint_step"]}
+        report["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 2**30
+    finally:
+        shutil.rmtree(run_dir / "checkpoints", ignore_errors=True)  # ~1.8 GB each; the logs stay
+    return report
+
+
+# the JAX package's tiny learning curve on the CPU (bfloat16, 4 steps a dispatch), for comparison only
+JAX_CURVE = Path("artifacts/learning_curve_cpu_tiny_20k.json")
+
+
+def _quarters(points: list) -> dict:
+    """validate_learning's first- and last-quarter means of [step, value] points."""
+    q = max(len(points) // 4, 1)
+    return {"first": sum(v for _, v in points[:q]) / q, "last": sum(v for _, v in points[-q:]) / q}
+
+
+def learning() -> dict:
+    """The tiny learning check on the card, 300 steps, and the JAX package's CPU curve beside it."""
+    out_dir = Path("chiprun_out/learning")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    t0 = time.perf_counter()
+    rc = validate_learning.main(["--scale", "tiny", "--iters", "300", "--eval-every", "50", "--device", "cuda",
+                                 "--output-dir", str(out_dir)])
+    seconds = time.perf_counter() - t0
+    _expect(rc == 0, "learning: LEARNING CHECK did not PASS")
+    (report_path,) = out_dir.glob("*/neuradar/learning_check.json")
+    report = json.loads(report_path.read_text())
+    jax_curves = json.loads(JAX_CURVE.read_text())["curves"]
+    jax = {k: _quarters([p for p in jax_curves[k] if p[0] < 300]) for k in ("loss", "psnr", "depth_loss", "radar_loss")}
+    return {"seconds": seconds, "port": {k: report[k] for k in jax}, "jax_cpu_bf16_first_300": jax,
+            "curve_keys": report.get("curve_keys"),
+            "jax_curve_keys_missing": sorted(set(jax_curves) - set(report.get("curve_keys", [])))}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on a GPU only", file=sys.stderr)
@@ -407,29 +569,39 @@ def main() -> int:
         phase("kernel", **row)
 
     render_kernels = (composite_sky_fwd, self_attention_fwd)
-    for k in KERNELS:
+    for k in PATH_KERNELS:
         k.launches = 0
     t0 = time.perf_counter()
     render_full_width(device)
-    render_launches = {k.__name__: k.launches for k in KERNELS}
+    render_launches = {k.__name__: k.launches for k in PATH_KERNELS}
     phase("render", seconds=time.perf_counter() - t0, launches=render_launches,
           peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30)
     _expect(all(render_launches[k.__name__] > 0 for k in render_kernels),
             f"a kernel of the render path never launched: {render_launches}")
 
-    for k in KERNELS:
+    for k in PATH_KERNELS:
         k.launches = 0
     t0 = time.perf_counter()
     train_full_width(device)
-    launches = {k.__name__: k.launches for k in KERNELS}
+    launches = {k.__name__: k.launches for k in PATH_KERNELS}
     phase("train", seconds=time.perf_counter() - t0, launches=launches)
     _expect(all(n > 0 for n in launches.values()), f"a kernel of the train path never launched: {launches}")
 
     phase("agreement", max_abs_err=check_tiny_agreement(device), **TINY_TOL)
     phase("train_agreement", **check_tiny_train_agreement(device))
 
+    for k in PATH_KERNELS:
+        k.launches = 0
+    report = cli_train()
+    cli_launches = {k.__name__: k.launches for k in PATH_KERNELS}
+    phase("cli_train", launches=cli_launches, **report)
+    _expect(all(n > 0 for n in cli_launches.values()), f"a kernel of the train command never launched: {cli_launches}")
+
+    phase("learning", **learning())
+
     for row in rows:
-        row["launches"] = (render_launches if row["path"] == "render" else launches)[row["name"]]
+        if row["path"] != "standalone":
+            row["launches"] = (render_launches if row["path"] == "render" else launches)[row["name"]]
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -15,6 +15,12 @@ from neuradar_tpu_torch.pipelines.ad_neuradar_pipeline import ADNeuRadarPipeline
 
 def _neuradar_synthetic() -> TrainerConfig:
     return TrainerConfig(
+        method_name="neuradar-synthetic",
+        steps_per_eval_batch=500,
+        steps_per_eval_image=0,
+        steps_per_eval_all_images=2000,
+        steps_per_eval_all_radars=2000,
+        steps_per_save=1000,
         max_num_iterations=2001,
         pipeline=ADNeuRadarPipelineConfig(datamanager=ADDataManagerConfig()),
         optimizers=default_optimizer_groups(2001),
@@ -23,3 +29,10 @@ def _neuradar_synthetic() -> TrainerConfig:
 
 
 method_configs: Dict[str, Callable[[], TrainerConfig]] = {"neuradar-synthetic": _neuradar_synthetic}
+method_descriptions = {"neuradar-synthetic": "NeuRadar on the built-in synthetic scene (no dataset needed)."}
+
+
+def get_method(name: str) -> TrainerConfig:
+    if name not in method_configs:
+        raise KeyError(f"unknown method {name!r}; the port has {sorted(method_configs)}")
+    return method_configs[name]()

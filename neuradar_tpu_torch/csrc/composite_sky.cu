@@ -1,4 +1,5 @@
-// K1: volume compositing with sky redistribution, forward and backward, for sm_90a.
+// K1: volume compositing with sky redistribution, forward and backward, for sm_90a;
+// and K3, the same compositing without the sky sample, forward only (below).
 //
 // Replaces the TPU kernel `_composite_sky_fwd_kernel` reached through
 // `fused_composite_sky` -> `_sky_pallas_fwd` (ops/volumetric.py of the JAX package).
@@ -136,7 +137,63 @@ __global__ void composite_sky_bwd_kernel(const float* __restrict__ alpha, const 
   }
 }
 
+// K3: compositing without sky redistribution, forward only. Replaces the TPU
+// kernel `_composite_kernel` reached through `fused_composite` (ops/volumetric.py
+// of the JAX package). Per ray r with S samples, C channels and sample
+// midpoints steps[S]:
+//   w[s]    = alpha[s] * prod_{j<s} (1 - alpha[j] + 1e-7)
+//   feat[c] = sum_s w[s] * feats[s, c],  depth = sum_s w[s] * steps[s],  accum = sum_s w[s]
+// What bounds it: memory, as K1 forward (the feats read is ~30x everything else).
+// Design: K1 forward's, one warp per ray and lane = channel, a coalesced
+// 128-byte feats row per sample; with no sky sample the accumulation is not
+// needed before the features, so one pass over the samples does it all. The
+// transmittance is the direct running product (the TPU kernel's
+// exp(cumsum(log)) was a Mosaic limit). Every lane walks the product in the
+// same order and holds the same w[s]; steps[s] is a broadcast read.
+__global__ void composite_fwd_kernel(const float* __restrict__ alpha, const float* __restrict__ feats,
+                                     const float* __restrict__ steps, float* __restrict__ weights,
+                                     float* __restrict__ features, float* __restrict__ depth,
+                                     float* __restrict__ accum, int R, int S, int C) {
+  const int lane = threadIdx.x & 31;
+  const long long ray = static_cast<long long>(blockIdx.x) * kWarpsPerBlock + (threadIdx.x >> 5);
+  if (ray >= R) return;
+  const float* a = alpha + ray * S;
+  const float* t = steps + ray * S;
+  const float* f = feats + ray * static_cast<long long>(S) * C;
+  for (int c0 = 0; c0 < C; c0 += 32) {
+    const int c = c0 + lane;
+    float out = 0.0f, acc = 0.0f, dep = 0.0f, trans = 1.0f;
+    for (int s = 0; s < S; ++s) {
+      const float al = __ldg(a + s);
+      const float w = al * trans;
+      trans *= 1.0f - al + kEps;
+      if (c0 == 0) {
+        if ((s & 31) == lane) weights[ray * S + s] = w;
+        acc += w;
+        dep += w * __ldg(t + s);
+      }
+      if (c < C) out += w * __ldg(f + static_cast<long long>(s) * C + c);
+    }
+    if (c < C) features[ray * C + c] = out;
+    if (c0 == 0 && lane == 0) {
+      depth[ray] = dep;
+      accum[ray] = acc;
+    }
+  }
+}
+
 }  // namespace
+
+extern "C" int composite_fwd(const void* alpha, const void* feats, const void* steps, void* weights, void* features,
+                             void* depth, void* accum, int R, int S, int C, void* stream) {
+  if (R == 0) return static_cast<int>(cudaGetLastError());
+  const int blocks = (R + kWarpsPerBlock - 1) / kWarpsPerBlock;
+  composite_fwd_kernel<<<blocks, kWarpsPerBlock * 32, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(alpha), static_cast<const float*>(feats), static_cast<const float*>(steps),
+      static_cast<float*>(weights), static_cast<float*>(features), static_cast<float*>(depth),
+      static_cast<float*>(accum), R, S, C);
+  return static_cast<int>(cudaGetLastError());
+}
 
 // Shared memory per block: two [S] float rows per warp; S up to kMaxBwdSamples.
 constexpr int kMaxBwdSamples = 768;

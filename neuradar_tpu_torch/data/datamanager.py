@@ -354,3 +354,12 @@ class ADDataManager:
         self._stop.set()
         if getattr(self, "_thread", None) is not None:
             self._thread.join(timeout=10.0)
+
+    def eval_camera_indices(self) -> np.ndarray:
+        return self.outputs.camera_split.eval
+
+    def eval_radar_indices(self) -> np.ndarray:
+        return self.outputs.radar_split.eval
+
+    def eval_lidar_indices(self) -> np.ndarray:
+        return self.outputs.lidar_split.eval

@@ -1,5 +1,6 @@
-"""Radar loss: multi-Bernoulli NLL with an on-device auction assignment (port
-of the JAX package's model_components/radar_utils.py, the training path).
+"""Radar loss: multi-Bernoulli NLL with an on-device auction assignment, and
+the eval-side point sampling and point-cloud distances (port of the JAX
+package's model_components/radar_utils.py).
 
 Ground-truth scans are padded to [num_scans, max_gt, 3] with a validity mask.
 Each GT point is assigned a distinct multi-Bernoulli component by a Jacobi
@@ -11,8 +12,9 @@ same answer without a host sync per round.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 EPS = 1e-6
@@ -108,3 +110,62 @@ def calculate_radar_loss(gt: torch.Tensor, gt_mask: torch.Tensor, radar_output: 
     cost = radar_cost_matrix(gt, gt_mask, radar_output.detach(), "euclidean" if training else "nll")
     assigned = auction_assignment(cost, gt_mask)
     return torch.mean(radar_scan_loss(gt, gt_mask, radar_output, assigned)), assigned
+
+
+# ---------------------------------------------------------------------------- eval: point sampling
+
+# the open interval of the Laplace sampler's uniform draws, as the JAX package's
+LAPLACE_U_LOW, LAPLACE_U_HIGH = -0.5 + 1e-6, 0.5 - 1e-6
+
+
+def nll_uniforms(n_mb: int, generator: torch.Generator) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The two uniform draws of one 'nll' sample, on the generator's device: U[0, 1) [n_mb] for the
+    existence draws and U[LAPLACE_U_LOW, LAPLACE_U_HIGH) [n_mb, 3] for the Laplace positions."""
+    dev = generator.device
+    u_exist = torch.rand((n_mb,), generator=generator, device=dev)
+    u_loc = LAPLACE_U_LOW + (LAPLACE_U_HIGH - LAPLACE_U_LOW) * torch.rand((n_mb, 3), generator=generator, device=dev)
+    return u_exist, u_loc
+
+
+def sample_radar_points(radar_output: torch.Tensor, loss_type: str,
+                        uniforms: Optional[Tuple[torch.Tensor, torch.Tensor]] = None, threshold: float = 0.5,
+                        max_detections: int = 1000) -> Tuple[torch.Tensor, torch.Tensor]:
+    """A point cloud drawn from one scan's multi-Bernoulli output [n_mb, 7]: points [n_mb, 3] and
+    the keep mask [n_mb]. Only the ``max_detections`` components of highest existence can be kept.
+
+    'euclidean' is deterministic: the means of components with r > threshold. 'nll' keeps a
+    component where u_exist < r and moves it by a Laplace draw (inverse CDF of u_loc); the
+    uniforms come from ``nll_uniforms`` or, in a test, from the JAX package's generator."""
+    r, mean, scale = mb_split(radar_output)
+    n_mb = r.shape[0]
+    order = torch.argsort(-r, stable=True)  # jnp.argsort is stable
+    rank = torch.empty_like(order)
+    rank[order] = torch.arange(n_mb, device=r.device)
+    in_budget = rank < max_detections
+    if loss_type == "euclidean":
+        return mean, in_budget & (r > threshold)
+    if loss_type == "nll":
+        if uniforms is None:
+            raise ValueError("nll sampling needs its uniform draws")
+        u_exist, u_loc = (u.to(r.device) for u in uniforms)
+        pts = mean - scale * torch.sign(u_loc) * torch.log1p(-2 * torch.abs(u_loc))
+        return pts, (u_exist < r) & in_budget
+    raise ValueError(loss_type)
+
+
+# ---------------------------------------------------------------------------- eval: host metrics
+
+
+def chamfer_distance_np(x: np.ndarray, y: np.ndarray) -> float:
+    """Bidirectional chamfer distance between two point clouds (host numpy)."""
+    if len(x) == 0 or len(y) == 0:
+        return float("nan")
+    d2 = ((x[:, None, :] - y[None, :, :]) ** 2).sum(-1)
+    return float(np.sqrt(d2.min(1)).mean() + np.sqrt(d2.min(0)).mean())
+
+
+def emd_distance_np(x: np.ndarray, y: np.ndarray) -> float:
+    """Earth mover's distance between two point clouds (scipy)."""
+    from scipy.stats import wasserstein_distance_nd
+
+    return float(wasserstein_distance_nd(x, y))

@@ -95,6 +95,7 @@ class NeuRadarModelConfig:
     temporal_appearance_freq: float = 1.0
     rgb_upsample_factor: int = 3
     rgb_hidden_dim: int = 32
+    existence_probability_threshold: float = 0.5  # radar components kept by the deterministic sampler
     eval_num_rays_per_chunk: int = 1 << 15
     nff_chunks: int = 1
     """Sequential ray chunks of the per-ray core; must divide the bundle (else one chunk). In

@@ -21,7 +21,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-SOURCES = ("composite_sky.cu", "attention.cu")
+SOURCES = ("composite_sky.cu", "attention.cu", "gather.cu")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 COMPILE_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC")
 
@@ -34,6 +34,10 @@ _SIGNATURES = {
     "composite_sky_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
     # alpha, feats, dwsky, df, daccum, dalpha, dfeats, R, S, C, stream
     "composite_sky_bwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    # alpha, feats, steps, weights, features, depth, accum, R, S, C, stream
+    "composite_fwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    # table, idx, out, N, F, stream
+    "row_gather": [_P, _P, _P, _I, _I, _P],
     # q, k, v, out, lse, B, S, D, scale, seed, thresh, inv_keep, stream
     "self_attention_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _U, _U, _F, _P],
     # q, k, v, out, dout, lse, delta, dq, dk, dv, B, S, D, scale, seed, thresh, inv_keep, stream

@@ -10,6 +10,10 @@ On CUDA tensors both launch the hand-written kernels in
 ``composite_sky_reference`` (the formulation of the JAX package's
 models/neuradar.py, the non-Pallas branch of ``_nff_core``) and autograd
 through it. ``composite_sky`` is the differentiable entry point.
+
+``fused_composite`` (kernel K3) composites without the sky sample and also
+returns the expected depth; it is forward only, as the JAX package's
+``fused_composite``, and no path of either package calls it.
 """
 
 from __future__ import annotations
@@ -126,3 +130,36 @@ class _CompositeSky(torch.autograd.Function):
 def composite_sky(alpha: torch.Tensor, feats: torch.Tensor) -> Tuple[torch.Tensor, ...]:
     """Differentiable K1: (w_sky, features, accum); the backward is ``composite_sky_bwd``."""
     return _CompositeSky.apply(alpha.contiguous(), feats.contiguous())
+
+
+def composite_reference(alpha: torch.Tensor, features: torch.Tensor, steps: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    """Plain PyTorch K3: cumprod weights, then the feature, depth and accumulation sums."""
+    weights = render_weights_from_alpha(alpha)
+    return (weights, (weights[..., None] * features).sum(dim=-2), (weights * steps).sum(dim=-1, keepdim=True),
+            weights.sum(dim=-1, keepdim=True))
+
+
+def fused_composite(alpha: torch.Tensor, features: torch.Tensor, steps: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    """K3 (forward only, as the JAX function): alpha [R, S], features [R, S, C], sample midpoints
+    steps [R, S] -> (weights [R, S], features [R, C], depth [R, 1], accum [R, 1]), no sky sample."""
+    if all(t.device.type == "cpu" for t in (alpha, features, steps)):
+        return composite_reference(alpha, features, steps)
+    if alpha.dim() != 2 or features.dim() != 3:
+        raise ValueError(f"fused_composite: alpha {tuple(alpha.shape)}, features {tuple(features.shape)}")
+    R, S = alpha.shape
+    C = features.shape[-1]
+    _check("fused_composite", (alpha, features, steps), ((R, S), (R, S, C), (R, S)))
+    lib = build.load()
+    weights = torch.empty_like(alpha)
+    out = torch.empty((R, C), dtype=features.dtype, device=features.device)
+    depth = torch.empty((R, 1), dtype=alpha.dtype, device=alpha.device)
+    accum = torch.empty((R, 1), dtype=alpha.dtype, device=alpha.device)
+    stream = torch.cuda.current_stream(alpha.device).cuda_stream
+    code = lib.composite_fwd(alpha.data_ptr(), features.data_ptr(), steps.data_ptr(), weights.data_ptr(),
+                             out.data_ptr(), depth.data_ptr(), accum.data_ptr(), R, S, C, stream)
+    build.check(code, "fused_composite")
+    fused_composite.launches += 1
+    return weights, out, depth, accum
+
+
+fused_composite.launches = 0

@@ -1,18 +1,22 @@
-"""AD NeuRadar pipeline: datamanager + model, the train and eval losses, and
-the render entry points (port of the JAX package's
+"""AD NeuRadar pipeline: datamanager + model, the train and eval losses, the
+render entry points and the eval-metric loops (port of the JAX package's
 pipelines/ad_neuradar_pipeline.py: the constructor, ``make_train_loss_fn``,
-``make_eval_loss_fn``, ``render_camera``, ``render_lidar`` and
-``render_radar``).
+``make_eval_loss_fn``, ``render_camera``, ``render_lidar``, ``render_radar``
+and ``get_average_eval_{image,lidar,radar}_metrics``; the FID evals are not
+ported).
 
 Everything runs on one explicit ``device``; there is no fallback to another.
 The render methods return tensors on that device (the JAX package returns
 numpy arrays), apart from the host-side lidar ``points`` and ``num_valid``.
+The metric loops render on the device and compute the metrics on the host
+with numpy and scipy, as the JAX package does.
 """
 
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass, field
-from typing import Callable, Dict, Sequence, Union
+from typing import Callable, Dict, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -26,7 +30,11 @@ from neuradar_tpu_torch.data.datamanager import (
     merge_modality_bundles,
 )
 from neuradar_tpu_torch.data.dataparsers.base import DataparserOutputs
+from neuradar_tpu_torch.model_components import radar_utils
 from neuradar_tpu_torch.model_components.dynamic_actors import trajectories_from_dicts
+from neuradar_tpu_torch.model_components.fid import PerceptualDistance
+from neuradar_tpu_torch.model_components.gospa import calculate_gospa
+from neuradar_tpu_torch.model_components.vgg import has_pretrained_weights
 from neuradar_tpu_torch.models.neuradar import NeuRadarModel, NeuRadarModelConfig, SceneMeta, SegmentLayout
 from neuradar_tpu_torch.utils.params import init_params
 
@@ -35,6 +43,8 @@ from neuradar_tpu_torch.utils.params import init_params
 class ADNeuRadarPipelineConfig:
     datamanager: ADDataManagerConfig = field(default_factory=ADDataManagerConfig)
     model: NeuRadarModelConfig = field(default_factory=NeuRadarModelConfig)
+    calc_fid_steps: Tuple[int, ...] = (99999999,)  # FID evals are not ported: a run that reaches one raises
+    radar_sampling_rounds: int = 10
 
 
 class ADNeuRadarPipeline:
@@ -157,3 +167,147 @@ class ADNeuRadarPipeline:
         outputs = self.model.get_outputs(merge_modality_bundles(None, None, radars.generate_rays(ids)), layout)
         radar_output = outputs["radar_output"]
         return {"radar_output": radar_output[0] if single else radar_output}
+
+    def get_average_eval_image_metrics(self) -> Dict[str, float]:
+        """PSNR, SSIM and the LPIPS surrogate over the eval images, with eval rays/s and fps."""
+        psnrs, ssims, lpips_vals = [], [], []
+        u = self.config.model.rgb_upsample_factor
+        total_rays = n_images = 0
+        lpips = None
+        t0 = time.perf_counter()
+        for cam_idx in self.datamanager.eval_camera_indices():
+            rgb = self.render_camera(int(cam_idx))["rgb"]
+            h, w = rgb.shape[:2]
+            gt = (self.outputs.images[int(cam_idx)].astype(np.float32) / 255.0)[:h, :w]
+            total_rays += (h // u) * (w // u)
+            n_images += 1
+            if lpips is None:
+                lpips = PerceptualDistance(self.device)
+            lpips_vals.append(lpips(rgb, gt))
+            rgb = rgb.cpu().numpy()
+            psnrs.append(-10.0 * np.log10(max(float(np.mean((rgb - gt) ** 2)), 1e-10)))
+            ssims.append(_ssim_np(rgb, gt))
+        dt = max(time.perf_counter() - t0, 1e-9)
+        lpips_key = "lpips_vgg" if has_pretrained_weights() else "lpips_vggsurrogate"
+        return {
+            "psnr": float(np.mean(psnrs)) if psnrs else 0.0,
+            "ssim": float(np.mean(ssims)) if ssims else 0.0,
+            lpips_key: float(np.mean(lpips_vals)) if lpips_vals else 0.0,
+            "eval_rays_per_sec": total_rays / dt,
+            "fps": n_images / dt,
+        }
+
+    def get_average_eval_lidar_metrics(self, max_points: int = 16384) -> Dict[str, float]:
+        """Depth, intensity, ray-drop and chamfer metrics over the eval lidar scans; the padding
+        rows past each scan's ``num_valid`` are left out of every statistic."""
+        med_l2, rel_l2, rmses, drop_accs, chamfers = [], [], [], [], []
+        for scan_idx in self.datamanager.eval_lidar_indices():
+            rend = self.render_lidar(int(scan_idx), max_points=max_points)
+            n = int(rend["num_valid"])
+            if n == 0:
+                continue
+            pts = rend["points"][:n]
+            pred = rend["depth"][:n].cpu().numpy()
+            intensity = rend["intensity"][:n].cpu().numpy()
+            gt_dist = np.linalg.norm(pts[:, :3], axis=1, keepdims=True)
+            did_return = (gt_dist < 1e3)[:, 0]
+            if did_return.any():
+                err = (pred[did_return] - gt_dist[did_return])[:, 0]
+                med_l2.append(float(np.median(err**2)))
+                rel_l2.append(float(np.mean((err / gt_dist[did_return][:, 0]) ** 2)))
+                rmses.append(float(np.sqrt(np.mean((intensity[did_return][:, 0] - pts[did_return, 3]) ** 2))))
+            pred_drop = rend["ray_drop_prob"][:n, 0].cpu().numpy() > 0.5
+            drop_accs.append(float((pred_drop == ~did_return).mean()))
+            keep = ~pred_drop
+            if keep.any() and did_return.any():
+                # chamfer between predicted returns and ground-truth returns, 1000 of each at most
+                dirs = pts[:, :3] / np.clip(np.linalg.norm(pts[:, :3], axis=1, keepdims=True), 1e-6, None)
+                pred_pts = dirs[keep] * pred[keep]
+                sel = np.random.RandomState(0)
+                a = pred_pts[sel.choice(len(pred_pts), min(1000, len(pred_pts)), replace=False)]
+                gt_pts = pts[did_return, :3]
+                b = gt_pts[sel.choice(len(gt_pts), min(1000, len(gt_pts)), replace=False)]
+                chamfers.append(radar_utils.chamfer_distance_np(a, b))
+        return {
+            "depth_median_l2": float(np.mean(med_l2)) if med_l2 else 0.0,
+            "depth_mean_rel_l2": float(np.mean(rel_l2)) if rel_l2 else 0.0,
+            "intensity_rmse": float(np.mean(rmses)) if rmses else 0.0,
+            "ray_drop_accuracy": float(np.mean(drop_accs)) if drop_accs else 0.0,
+            "lidar_chamfer_distance": float(np.mean(chamfers)) if chamfers else 0.0,
+        }
+
+    def get_average_eval_radar_metrics(
+        self, sampling_rounds: Optional[int] = None,
+        draw: Optional[Callable[[int], Tuple[torch.Tensor, torch.Tensor]]] = None,
+    ) -> Dict[str, float]:
+        """Chamfer, EMD and GOSPA over the eval radar scans, each scan sampled ``sampling_rounds``
+        times ('nll' sampling, the port's radar loss). ``draw(n_mb)`` returns one round's uniforms;
+        by default they come from a CPU generator seeded 0, so the card and the CPU draw alike."""
+        rounds = sampling_rounds or self.config.radar_sampling_rounds
+        if draw is None:
+            gen = torch.Generator().manual_seed(0)
+            draw = lambda n_mb: radar_utils.nll_uniforms(n_mb, gen)  # noqa: E731
+        chamfers, emds, gospas, locs, misses, falses = ([] for _ in range(6))
+        n_empty_pred = 0
+        scan_ids = [int(s) for s in self.datamanager.eval_radar_indices()]
+        rendered = self.render_radar(scan_ids)["radar_output"].cpu() if scan_ids else []
+        for scan_idx, ro in zip(scan_ids, rendered):
+            gt = self.outputs.radar_points[scan_idx][:, :3]
+            for _ in range(rounds):
+                pts, keep = radar_utils.sample_radar_points(
+                    ro, "nll", draw(ro.shape[0]), threshold=self.config.model.existence_probability_threshold)
+                pred = pts[keep].numpy()
+                if len(pred) and len(gt):
+                    chamfers.append(radar_utils.chamfer_distance_np(pred, gt))
+                    emds.append(radar_utils.emd_distance_np(pred, gt))
+                elif len(gt):
+                    n_empty_pred += 1  # chamfer and EMD are undefined for an empty set; GOSPA counts the misses
+                g, _, loc, miss, false = calculate_gospa(gt, pred)
+                gospas.append(g)
+                locs.append(loc)
+                misses.append(miss)
+                falses.append(false)
+        return {
+            "n_empty_pred_radar": n_empty_pred,
+            "chamfer_distance_radar_mean": float(np.mean(chamfers)) if chamfers else 0.0,
+            "chamfer_distance_radar_median": float(np.median(chamfers)) if chamfers else 0.0,
+            "chamfer_distance_radar_std": float(np.std(chamfers)) if chamfers else 0.0,
+            "emd_distance_radar_mean": float(np.mean(emds)) if emds else 0.0,
+            "emd_distance_radar_median": float(np.median(emds)) if emds else 0.0,
+            "gospa_mean": float(np.mean(gospas)) if gospas else 0.0,
+            "gospa_loc_mean": float(np.mean(locs)) if locs else 0.0,
+            "gospa_missed_mean": float(np.mean(misses)) if misses else 0.0,
+            "gospa_false_mean": float(np.mean(falses)) if falses else 0.0,
+        }
+
+
+def _gaussian_kernel1d(size: int = 11, sigma: float = 1.5) -> np.ndarray:
+    x = np.arange(size, dtype=np.float64) - (size - 1) / 2.0
+    k = np.exp(-0.5 * (x / sigma) ** 2)
+    return k / k.sum()
+
+
+def _ssim_np(a: np.ndarray, b: np.ndarray, c1=0.01**2, c2=0.03**2, win=11, sigma=1.5) -> float:
+    """Gaussian-window SSIM with torchmetrics' semantics, data range 1: an 11 x 11 window of sigma
+    1.5, population moments, and the SSIM map averaged over the valid windows only."""
+    from scipy.ndimage import correlate1d
+
+    h, w = a.shape[:2]
+    win = min(win, h - (h + 1) % 2, w - (w + 1) % 2)  # the largest odd size that fits
+    k = _gaussian_kernel1d(win, sigma)
+    p = (win - 1) // 2
+
+    def filt(img):
+        out = correlate1d(img, k, axis=0, mode="constant")
+        out = correlate1d(out, k, axis=1, mode="constant")
+        return out[p : h - p, p : w - p]  # the windows that never touch the border
+
+    a = a.astype(np.float64)
+    b = b.astype(np.float64)
+    mu_a = filt(a)
+    mu_b = filt(b)
+    var_a = filt(a * a) - mu_a**2
+    var_b = filt(b * b) - mu_b**2
+    cov = filt(a * b) - mu_a * mu_b
+    ssim = ((2 * mu_a * mu_b + c1) * (2 * cov + c2)) / ((mu_a**2 + mu_b**2 + c1) * (var_a + var_b + c2))
+    return float(ssim.mean())
