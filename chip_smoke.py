@@ -13,7 +13,11 @@ Phases, one line each before the final JSON line:
      the shapes the render and train paths give them, one row for each
      kernel and path, with CUDA-event times, the bound the card's
      memory rate and float32 peak put on each, and the time of the PyTorch
-     library call that computes the same function, where there is one;
+     library call that computes the same function, where there is one; K2's
+     rows also name their design and its tensor-core bound (3xTF32 at the
+     TF32 peak), time SDPA's backward with the kernel's dropout rate (and
+     without, under its own key), and check that two launches agree bit for
+     bit;
      K3 (fused_composite) and P1 (row_gather), which no path runs, at the
      shapes of a render chunk and of the gather probe up to a hash grid's
      table, with the launches of their own checks ("standalone");
@@ -100,10 +104,13 @@ TRAIN_GRAD_RTOL = 1e-3
 TRAIN_GRAD_ATOL_FLOOR = 1e-7
 ZERO_GRAD = 1e-6
 
-# the card's published peaks (H100 SXM data sheet, at 700 W): HBM bytes/s and float32 FLOP/s outside
-# the tensor cores
+# the card's published peaks (H100 SXM data sheet, at 700 W): HBM bytes/s, float32 FLOP/s outside
+# the tensor cores, and dense TF32 FLOP/s on them
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
+TF32_FLOPS = 495e12
+# K2's kernels run each float32 product as three TF32 products on the tensor cores (3xTF32)
+K2_DESIGN = "3xtf32-mma.sync"
 # the kernels of the render and train paths; K3 (fused_composite) and P1 (row_gather) are on no path
 PATH_KERNELS = (composite_sky_fwd, composite_sky_bwd, self_attention_fwd, self_attention_bwd)
 # The full-width train step runs the per-ray core unchunked, as the preset does: it fits (51 GB
@@ -139,6 +146,11 @@ def _bound(nbytes: float, flops: float) -> dict:
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / FP32_FLOPS * 1e3
     return {"bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "bytes": nbytes, "flops": flops}
+
+
+def _k2_bound(nbytes: float, flops: float) -> dict:
+    """K2's bounds: _bound's, and the tensor-core bound of its design, 3x the flops at the TF32 peak."""
+    return {**_bound(nbytes, flops), "design": K2_DESIGN, "tc_bound_ms": 3 * flops / TF32_FLOPS * 1e3}
 
 
 def _max_err(got, want) -> float:
@@ -196,34 +208,42 @@ def check_kernels(device: torch.device) -> list:
                  "ms": cuda_time_ms(lambda: self_attention_fwd(q, k, v)),
                  "plain_ms": cuda_time_ms(lambda: attention_reference(q, k, v)),
                  "library_ms": cuda_time_ms(lambda: F.scaled_dot_product_attention(q[:, None], k[:, None], v[:, None])),
-                 **_bound(4 * 4 * B * S * D, 4 * B * S * S * D)})
+                 **_k2_bound(4 * 4 * B * S * D, 4 * B * S * S * D)})
 
-    # K2 forward with dropout and backward at the train batch: 16 scans, rate 0.1, one seed
+    # K2 forward with dropout and backward at the train batch: 16 scans, rate 0.1, one seed; a second
+    # launch of each must agree bit for bit (no atomics)
     B, rate, seed = 16, 0.1, 1234
     q, k, v, dout = (torch.randn((B, S, D), generator=gen, device=device) for _ in range(4))
     out, lse = self_attention_fwd(q, k, v, rate, seed, return_lse=True)
     want = attention_reference(q, k, v, seed, rate)
     torch.testing.assert_close(out, want, **K2_TOL, msg=lambda m: f"K2 fwd dropout: {m}")
+    again = self_attention_fwd(q, k, v, rate, seed, return_lse=True)
+    _expect(torch.equal(again[0], out) and torch.equal(again[1], lse), "K2 fwd: two launches differ")
+    # SDPA's backward alone, through autograd, on graphs built with and without dropout
     qh, kh, vh = (t[:, None].clone().requires_grad_(True) for t in (q, k, v))
-    lib_out = F.scaled_dot_product_attention(qh, kh, vh)
+    lib_out = F.scaled_dot_product_attention(qh, kh, vh, dropout_p=rate)
+    lib_out_nodrop = F.scaled_dot_product_attention(qh, kh, vh)
     rows.append({"name": "self_attention_fwd", **k2, "replaces": "neuradar_tpu/ops/attention.py:176",
                  "path": "train", "shape": [B, S, D], "dropout": rate, "max_abs_err": float((out - want).abs().max()),
                  "ms": cuda_time_ms(lambda: self_attention_fwd(q, k, v, rate, seed, return_lse=True)),
                  "plain_ms": cuda_time_ms(lambda: attention_reference(q, k, v, seed, rate)),
                  "library_ms": cuda_time_ms(lambda: F.scaled_dot_product_attention(
                      q[:, None], k[:, None], v[:, None], dropout_p=rate)),
-                 **_bound(4 * (4 * B * S * D + B * S), 4 * B * S * S * D)})
+                 **_k2_bound(4 * (4 * B * S * D + B * S), 4 * B * S * S * D)})
     got = self_attention_bwd(q, k, v, out, dout, lse, rate, seed)
     want = attention_bwd_reference(q, k, v, dout, seed, rate)
     _assert_all_close(got, want, K2_BWD_TOL, "K2 bwd")
+    _expect(all(torch.equal(a, b) for a, b in zip(self_attention_bwd(q, k, v, out, dout, lse, rate, seed), got)),
+            "K2 bwd: two launches differ")
     rows.append({"name": "self_attention_bwd", **k2, "replaces": "neuradar_tpu/ops/attention.py:196",
                  "path": "train", "shape": [B, S, D], "dropout": rate, "max_abs_err": _max_err(got, want),
                  "ms": cuda_time_ms(lambda: self_attention_bwd(q, k, v, out, dout, lse, rate, seed)),
                  "plain_ms": cuda_time_ms(lambda: attention_bwd_reference(q, k, v, dout, seed, rate)),
-                 # the backward alone of SDPA (without dropout), through autograd
                  "library_ms": cuda_time_ms(lambda: torch.autograd.grad(lib_out, (qh, kh, vh), dout[:, None],
                                                                           retain_graph=True)),
-                 **_bound(4 * (8 * B * S * D + B * S), 10 * B * S * S * D)})
+                 "library_no_dropout_ms": cuda_time_ms(lambda: torch.autograd.grad(
+                     lib_out_nodrop, (qh, kh, vh), dout[:, None], retain_graph=True)),
+                 **_k2_bound(4 * (8 * B * S * D + B * S), 10 * B * S * S * D)})
 
     # K3 at a render chunk's shape with sample midpoints, against its plain version in float64 (as K1)
     R, S, C = 32768, 33, 32

@@ -102,6 +102,21 @@ def _dropout_args(seed: int, rate: float):
     return seed & _M32, thresh, (1.0 / (1.0 - rate)) if thresh else 1.0
 
 
+def launch_fwd(lib, q, k, v, dropout_rate: float, seed: int, return_lse: bool):
+    """The forward kernel of ``lib`` (the port's library, or another build of csrc/attention.cu's C
+    interface) on checked CUDA tensors: (out, lse or None)."""
+    B, S, D = q.shape
+    seed32, thresh, inv_keep = _dropout_args(seed, dropout_rate)
+    out = torch.empty_like(q)
+    lse = torch.empty((B, S), dtype=q.dtype, device=q.device) if return_lse else None
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    code = lib.self_attention_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                                  lse.data_ptr() if lse is not None else None, B, S, D, D**-0.5,
+                                  seed32, thresh, inv_keep, stream)
+    build.check(code, "self_attention_fwd")
+    return out, lse
+
+
 def self_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, dropout_rate: float = 0.0,
                        seed: int = 0, return_lse: bool = False):
     """K2 forward: [B, S, D] -> [B, S, D] (and the row log-sum-exp [B, S] with ``return_lse``)."""
@@ -111,21 +126,26 @@ def self_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, dropou
             return out
         return out, torch.logsumexp(_scores(q, k), dim=-1)
     _check("self_attention_fwd", (q, k, v), q.shape)
-    B, S, D = q.shape
-    seed32, thresh, inv_keep = _dropout_args(seed, dropout_rate)
-    lib = build.load()
-    out = torch.empty_like(q)
-    lse = torch.empty((B, S), dtype=q.dtype, device=q.device) if return_lse else None
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    code = lib.self_attention_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                                  lse.data_ptr() if lse is not None else None, B, S, D, D**-0.5,
-                                  seed32, thresh, inv_keep, stream)
-    build.check(code, "self_attention_fwd")
+    out, lse = launch_fwd(build.load(), q, k, v, dropout_rate, seed, return_lse)
     self_attention_fwd.launches += 1
     return (out, lse) if return_lse else out
 
 
 self_attention_fwd.launches = 0
+
+
+def launch_bwd(lib, q, k, v, out, dout, lse, dropout_rate: float, seed: int):
+    """The backward kernels of ``lib`` (as ``launch_fwd``) on checked CUDA tensors: (dq, dk, dv)."""
+    B, S, D = q.shape
+    seed32, thresh, inv_keep = _dropout_args(seed, dropout_rate)
+    delta = torch.empty((B, S), dtype=q.dtype, device=q.device)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    code = lib.self_attention_bwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(),
+                                  lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                                  B, S, D, D**-0.5, seed32, thresh, inv_keep, stream)
+    build.check(code, "self_attention_bwd")
+    return dq, dk, dv
 
 
 def self_attention_bwd(q, k, v, out, dout, lse, dropout_rate: float = 0.0,
@@ -134,20 +154,12 @@ def self_attention_bwd(q, k, v, out, dout, lse, dropout_rate: float = 0.0,
     if all(t.device.type == "cpu" for t in (q, k, v, dout)):
         return attention_bwd_reference(q, k, v, dout, seed, dropout_rate)
     _check("self_attention_bwd", (q, k, v, out, dout), q.shape)
-    B, S, D = q.shape
+    B, S, _ = q.shape
     if lse.device != q.device or lse.dtype != torch.float32 or tuple(lse.shape) != (B, S) or not lse.is_contiguous():
         raise ValueError(f"self_attention_bwd: lse {tuple(lse.shape)} {lse.dtype} on {lse.device}")
-    seed32, thresh, inv_keep = _dropout_args(seed, dropout_rate)
-    lib = build.load()
-    delta = torch.empty((B, S), dtype=q.dtype, device=q.device)
-    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    code = lib.self_attention_bwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(),
-                                  lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-                                  B, S, D, D**-0.5, seed32, thresh, inv_keep, stream)
-    build.check(code, "self_attention_bwd")
+    grads = launch_bwd(build.load(), q, k, v, out, dout, lse, dropout_rate, seed)
     self_attention_bwd.launches += 1
-    return dq, dk, dv
+    return grads
 
 
 self_attention_bwd.launches = 0

@@ -109,6 +109,26 @@ def load() -> ctypes.CDLL:
     return _lib
 
 
+def build_each(sources: dict, out_dir: Path) -> dict:
+    """Each source (name -> path) alone into its own library under ``out_dir`` (one nvcc each, all
+    started together), loaded and bound with the port's signatures for the launchers it exports.
+    For measurements that set variants of a kernel side by side; the port loads ``load()`` only."""
+    out_dir.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    paths = {name: out_dir / f"lib{name}.so" for name in sources}
+    _run_all([[nvcc, *COMPILE_FLAGS, "-shared", "-o", str(paths[name]), str(src)] for name, src in sources.items()])
+    libs = {}
+    for name, path in paths.items():
+        lib = ctypes.CDLL(str(path))
+        for fn_name, argtypes in _SIGNATURES.items():
+            if hasattr(lib, fn_name):
+                fn = getattr(lib, fn_name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+        libs[name] = lib
+    return libs
+
+
 def check(code: int, name: str) -> None:
     if code != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with cudaError_t {code}")

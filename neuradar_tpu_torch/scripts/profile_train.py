@@ -7,14 +7,17 @@ warm-up step, times ``--steps`` untraced steps (host clock around a
 synchronized step; median, min, max), then traces one more step with
 torch.profiler. It prints, as JSON lines: the wall times and peak memory;
 the traced step's device busy time (the union of its kernel intervals) and
-idle share (1 - busy / wall); the device time under each labelled range
-(train/forward, train/optimizer, and the model's layers: proposal_sampling,
-field, hash_encode, composite_sky, rgb_decoder, radar_decoder, losses; a
-layer's time sums its forward and, with nff_chunks > 1, its recompute in the
-backward pass); the backward's device time, which is the busy time less the
-forward and the optimizer (autograd runs the backward on its own device
-thread, outside the step's labelled ranges); and the kernels with the most
-device time. ``--out`` also writes the whole record as one JSON file. Needs CUDA.
+idle share (1 - busy / wall); the device time of the kernels launched inside
+each labelled range (train/forward, train/optimizer, and the model's layers:
+proposal_sampling, field, hash_encode, composite_sky, rgb_decoder,
+radar_decoder, losses; a layer's time sums its forward and, with
+nff_chunks > 1, its recompute in the backward pass), and beside it the
+range's span on the device, first kernel to last, which the profiler's key
+averages report for some ranges in its place; the backward's device time,
+which is the busy time less the forward and the optimizer (autograd runs the
+backward on its own device thread, outside the step's labelled ranges); the
+largest kernels under each model layer's label; and the kernels with the
+most device time overall. ``--out`` also writes the whole record as one JSON file. Needs CUDA.
 """
 
 from __future__ import annotations
@@ -51,6 +54,29 @@ def _busy_ms(events) -> float:
     if cur_e is not None:
         busy += cur_e - cur_s
     return busy / 1e3  # us -> ms
+
+
+def _kernels_under(events, label: str, top: int) -> dict:
+    """The kernels launched inside the CPU ranges named ``label``: their summed device ms, and the
+    ``top`` of them by device ms (the label's own breakdown); and the device-side span that the
+    profiler records for the same label (first kernel's start to last kernel's end)."""
+    sums = {}
+
+    def walk(e):
+        for k in e.kernels:
+            name = k.name[:120]
+            sums[name] = sums.get(name, 0.0) + k.duration / 1e3
+        for child in e.cpu_children:
+            walk(child)
+
+    span_us = 0.0
+    for e in events:
+        if e.name == label and e.device_type == torch.autograd.DeviceType.CPU:
+            walk(e)
+        elif e.name == label:
+            span_us += e.time_range.elapsed_us()
+    return {"kernel_ms": sum(sums.values()), "device_span_ms": span_us / 1e3,
+            "top": [{"name": n, "device_ms": ms} for n, ms in sorted(sums.items(), key=lambda kv: -kv[1])[:top]]}
 
 
 def _step(trainer: Trainer) -> float:
@@ -93,13 +119,15 @@ def main(argv=None) -> int:
         traced_wall = _step(trainer)
     events = prof.events()
     busy = _busy_ms(events)
-    averages = prof.key_averages()
-    labels = {a.key: a.device_time_total / 1e3 for a in averages if a.key in LABELS}
-    kernels = sorted((a for a in averages if a.device_type == torch.autograd.DeviceType.CUDA),
+    layers = {label: _kernels_under(events, label, 8) for label in LABELS}
+    labels = {label: layer["kernel_ms"] for label, layer in layers.items()}
+    kernels = sorted((a for a in prof.key_averages() if a.device_type == torch.autograd.DeviceType.CUDA),
                      key=lambda a: a.self_device_time_total, reverse=True)[:args.top]
     trace = {"traced_wall_ms": traced_wall * 1e3, "device_busy_ms": busy,
              "idle_share": 1.0 - busy / (traced_wall * 1e3), "label_device_ms": labels,
-             "backward_device_ms": busy - labels.get("train/forward", 0.0) - labels.get("train/optimizer", 0.0),
+             "label_device_span_ms": {label: layer["device_span_ms"] for label, layer in layers.items()},
+             "backward_device_ms": busy - labels["train/forward"] - labels["train/optimizer"],
+             "label_kernels": {label: layers[label]["top"] for label in LABELS[2:]},
              "top_kernels": [{"name": a.key[:120], "device_ms": a.self_device_time_total / 1e3, "calls": a.count}
                              for a in kernels]}
     print(json.dumps({"phase": "trace", **trace}), flush=True)

@@ -193,10 +193,21 @@ def test_composite_sky_kernel_matches_plain(cuda, R):
         torch.testing.assert_close(g, w, **K1_TOL)
 
 
+# K2 on the card: sequence lengths around the kernels' 64-row tiles (S = 3,531 = 55 * 64 + 11 is the
+# radar scan), every head width they are built for, and the train batch of 16 scans at S = 3,531
+K2_LENGTHS = (1, 5, 63, 64, 65, 127, 300, 3531)
+K2_WIDTHS = (16, 32, 48, 64)
+
+
+def _k2_batch(S):
+    return 16 if S == 3531 else 2
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("B,S,D", [(2, 300, 48), (1, 3531, 48), (3, 5, 32), (1, 64, 16)])
-def test_attention_kernel_matches_plain(cuda, B, S, D):
-    q, k, v = (torch.from_numpy(x).to(cuda) for x in _k2_inputs(B, S, D))
+@pytest.mark.parametrize("D", K2_WIDTHS)
+@pytest.mark.parametrize("S", K2_LENGTHS)
+def test_attention_kernel_matches_plain(cuda, S, D):
+    q, k, v = (torch.from_numpy(x).to(cuda) for x in _k2_inputs(_k2_batch(S), S, D))
     torch.testing.assert_close(t_attention.self_attention_fwd(q, k, v), t_attention.attention_reference(q, k, v),
                                **K2_TOL)
 
@@ -213,10 +224,12 @@ def test_composite_sky_bwd_kernel_matches_plain(cuda, R, C):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("B,S,D", [(2, 300, 48), (1, 3531, 48), (3, 5, 32), (1, 64, 16)])
 @pytest.mark.parametrize("rate", [0.0, 0.1])
-def test_attention_train_kernels_match_plain(cuda, B, S, D, rate):
+@pytest.mark.parametrize("D", K2_WIDTHS)
+@pytest.mark.parametrize("S", K2_LENGTHS)
+def test_attention_train_kernels_match_plain(cuda, S, D, rate):
     """Forward with dropout (same seed, same mask as the plain version), its lse, and the backward."""
+    B = _k2_batch(S)
     q, k, v = (torch.from_numpy(x).to(cuda) for x in _k2_inputs(B, S, D))
     dout = torch.from_numpy(np.random.RandomState(5).normal(size=(B, S, D)).astype(np.float32)).to(cuda)
     out, lse = t_attention.self_attention_fwd(q, k, v, rate, 123, return_lse=True)
@@ -227,6 +240,19 @@ def test_attention_train_kernels_match_plain(cuda, B, S, D, rate):
     want = t_attention.attention_bwd_reference(q, k, v, dout, 123, rate)
     for g, w in zip(got, want):
         torch.testing.assert_close(g, w, **K2_BWD_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S", [(2, 300), (16, 3531)])
+def test_attention_kernels_are_deterministic(cuda, B, S):
+    """No atomics: two launches of the forward and the backward on the same inputs agree bit for bit."""
+    q, k, v, dout = (torch.from_numpy(x).to(cuda) for x in (*_k2_inputs(B, S, 48), _k2_inputs(B, S, 48, seed=5)[0]))
+    runs = []
+    for _ in range(2):
+        out, lse = t_attention.self_attention_fwd(q, k, v, 0.1, 77, return_lse=True)
+        runs.append((out, lse, *t_attention.self_attention_bwd(q, k, v, out, dout, lse, 0.1, 77)))
+    for a, b, name in zip(*runs, ("out", "lse", "dq", "dk", "dv")):
+        assert torch.equal(a, b), name
 
 
 @pytest.mark.cuda
