@@ -11,9 +11,13 @@ Phases, one line each before the final JSON line:
      forward, with and without dropout, and backward (self_attention_fwd /
      _bwd) against their plain PyTorch versions (K1 forward's in float64) at
      the shapes the render and train paths give them, one row for each
-     kernel and path, with CUDA-event times, the bound the card's
-     memory rate and float32 peak put on each, and the time of the PyTorch
-     library call that computes the same function, where there is one; K2's
+     kernel and path, with the kernel's device time alone (``ms``,
+     utils/timing.device_ms: launches queued behind a spin of the card and
+     timed by one event pair) and one call's time with its host work
+     (``call_ms``), the bound the card's memory rate and float32 peak put on
+     each, and the device times of the plain version and of the PyTorch
+     library call that computes the same function, where there is one; K1
+     backward's row names the path of the kernel that ran; K2's
      rows also name their design and its tensor-core bound (3xTF32 at the
      TF32 peak), time SDPA's backward with the kernel's dropout rate (and
      without, under its own key), and check that two launches agree bit for
@@ -55,7 +59,6 @@ import gc
 import json
 import math
 import shutil
-import statistics
 import subprocess
 import sys
 import time
@@ -77,6 +80,7 @@ from neuradar_tpu_torch.ops.attention import (
 )
 from neuradar_tpu_torch.ops.volumetric import (
     composite_sky_bwd,
+    composite_sky_bwd_path,
     composite_sky_bwd_reference,
     composite_reference,
     composite_sky_fwd,
@@ -87,6 +91,7 @@ from neuradar_tpu_torch.pipelines.ad_neuradar_pipeline import ADNeuRadarPipeline
 from neuradar_tpu_torch.scripts import eval as eval_script
 from neuradar_tpu_torch.scripts import train as train_script
 from neuradar_tpu_torch.scripts import validate_learning
+from neuradar_tpu_torch.utils.timing import call_ms, device_ms, kernels_ms
 
 K1_TOL = dict(rtol=1e-5, atol=1e-6)
 K2_TOL = dict(rtol=1e-4, atol=1e-5)  # online softmax sums in another order than the plain version
@@ -109,6 +114,8 @@ ZERO_GRAD = 1e-6
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
 TF32_FLOPS = 495e12
+# the plain versions' calls timed behind one spin of the card (see _times)
+PLAIN_REPS = 1
 # K2's kernels run each float32 product as three TF32 products on the tensor cores (3xTF32)
 K2_DESIGN = "3xtf32-mma.sync"
 # the kernels of the render and train paths; K3 (fused_composite) and P1 (row_gather) are on no path
@@ -125,19 +132,18 @@ def phase(label: str, /, **fields) -> None:
     print(json.dumps({"phase": label, **fields}), flush=True)
 
 
-def cuda_time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
-    """Median over `reps` launches, each timed with its own pair of CUDA events."""
-    for _ in range(warmup):
-        fn()
-    times = []
-    for _ in range(reps):
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
+def _times(kernel, plain, library=None, plain_syncs=False) -> dict:
+    """The kernel's device time alone and one call's time with its host work; the plain version's
+    and the library call's device times; and the kernel's timing run (host enqueue, spin). A plain
+    version is timed one call at a time behind the spin (PLAIN_REPS): K2's launches ~170 kernels a
+    call for its dropout mask, and 20 calls overflow the card's queue of pending launches. One that
+    synchronises the host inside is timed by its kernels' device times (kernels_ms)."""
+    ms = device_ms(kernel)
+    timer = device_ms.last
+    return {"ms": ms, "call_ms": call_ms(kernel),
+            "plain_ms": kernels_ms(plain) if plain_syncs else device_ms(plain, reps=PLAIN_REPS),
+            "plain_timer": "kernels_ms" if plain_syncs else f"device_ms, {PLAIN_REPS} call",
+            "library_ms": None if library is None else device_ms(library), "timer": timer}
 
 
 def _bound(nbytes: float, flops: float) -> dict:
@@ -182,20 +188,23 @@ def check_kernels(device: torch.device) -> list:
         _assert_all_close(got, want, K1_TOL, f"K1 fwd {path}")
         rows.append({"name": "composite_sky_fwd", **k1, "replaces": "neuradar_tpu/ops/volumetric.py:100",
                      "path": path, "shape": [R, S, C], "max_abs_err": _max_err(got, want),
-                     "ms": cuda_time_ms(lambda: composite_sky_fwd(alpha, feats)),
-                     "plain_ms": cuda_time_ms(lambda: composite_sky_reference(alpha, feats)), "library_ms": None,
+                     **_times(lambda: composite_sky_fwd(alpha, feats), lambda: composite_sky_reference(alpha, feats)),
                      **_bound(4 * (R * S * (C + 2) + R * (C + 1)), R * S * (2 * C + 8))})
 
-    # K1 backward at the train chunk, on the train chunk's alpha and feats
+    # K1 backward at the train chunk, on the train chunk's alpha and feats; a second launch must agree
+    # bit for bit (no atomics)
     cots = (torch.randn((R, S), generator=gen, device=device), torch.randn((R, C), generator=gen, device=device),
             torch.randn((R, 1), generator=gen, device=device))
     got, want = composite_sky_bwd(alpha, feats, *cots), composite_sky_bwd_reference(alpha, feats, *cots)
     _assert_all_close(got, want, K1_BWD_TOL, "K1 bwd")
+    _expect(all(torch.equal(a, b) for a, b in zip(composite_sky_bwd(alpha, feats, *cots), got)),
+            "K1 bwd: two launches differ")
     rows.append({"name": "composite_sky_bwd", **k1, "replaces": "neuradar_tpu/ops/volumetric.py:125",
-                 "path": "train", "shape": [R, S, C], "max_abs_err": _max_err(got, want),
-                 "ms": cuda_time_ms(lambda: composite_sky_bwd(alpha, feats, *cots)),
-                 "plain_ms": cuda_time_ms(lambda: composite_sky_bwd_reference(alpha, feats, *cots)),
-                 "library_ms": None,
+                 "path": "train", "shape": [R, S, C], "design": composite_sky_bwd_path(feats, cots[1]),
+                 "max_abs_err": _max_err(got, want),
+                 # the plain version syncs once a call: torch's cumprod backward checks its input for zeros
+                 **_times(lambda: composite_sky_bwd(alpha, feats, *cots),
+                          lambda: composite_sky_bwd_reference(alpha, feats, *cots), plain_syncs=True),
                  **_bound(4 * (2 * R * S * C + 3 * R * S + R * C + R), R * S * (3 * C + 12))})
 
     # K2 forward at the render path's radar batch, dropout 0 (4 scans of the ZOD FoV, d_model 48)
@@ -205,9 +214,8 @@ def check_kernels(device: torch.device) -> list:
     torch.testing.assert_close(got, want, **K2_TOL, msg=lambda m: f"K2 fwd: {m}")
     rows.append({"name": "self_attention_fwd", **k2, "replaces": "neuradar_tpu/ops/attention.py:176",
                  "path": "render", "shape": [B, S, D], "dropout": 0.0, "max_abs_err": float((got - want).abs().max()),
-                 "ms": cuda_time_ms(lambda: self_attention_fwd(q, k, v)),
-                 "plain_ms": cuda_time_ms(lambda: attention_reference(q, k, v)),
-                 "library_ms": cuda_time_ms(lambda: F.scaled_dot_product_attention(q[:, None], k[:, None], v[:, None])),
+                 **_times(lambda: self_attention_fwd(q, k, v), lambda: attention_reference(q, k, v),
+                          lambda: F.scaled_dot_product_attention(q[:, None], k[:, None], v[:, None])),
                  **_k2_bound(4 * 4 * B * S * D, 4 * B * S * S * D)})
 
     # K2 forward with dropout and backward at the train batch: 16 scans, rate 0.1, one seed; a second
@@ -225,10 +233,9 @@ def check_kernels(device: torch.device) -> list:
     lib_out_nodrop = F.scaled_dot_product_attention(qh, kh, vh)
     rows.append({"name": "self_attention_fwd", **k2, "replaces": "neuradar_tpu/ops/attention.py:176",
                  "path": "train", "shape": [B, S, D], "dropout": rate, "max_abs_err": float((out - want).abs().max()),
-                 "ms": cuda_time_ms(lambda: self_attention_fwd(q, k, v, rate, seed, return_lse=True)),
-                 "plain_ms": cuda_time_ms(lambda: attention_reference(q, k, v, seed, rate)),
-                 "library_ms": cuda_time_ms(lambda: F.scaled_dot_product_attention(
-                     q[:, None], k[:, None], v[:, None], dropout_p=rate)),
+                 **_times(lambda: self_attention_fwd(q, k, v, rate, seed, return_lse=True),
+                          lambda: attention_reference(q, k, v, seed, rate),
+                          lambda: F.scaled_dot_product_attention(q[:, None], k[:, None], v[:, None], dropout_p=rate)),
                  **_k2_bound(4 * (4 * B * S * D + B * S), 4 * B * S * S * D)})
     got = self_attention_bwd(q, k, v, out, dout, lse, rate, seed)
     want = attention_bwd_reference(q, k, v, dout, seed, rate)
@@ -237,11 +244,10 @@ def check_kernels(device: torch.device) -> list:
             "K2 bwd: two launches differ")
     rows.append({"name": "self_attention_bwd", **k2, "replaces": "neuradar_tpu/ops/attention.py:196",
                  "path": "train", "shape": [B, S, D], "dropout": rate, "max_abs_err": _max_err(got, want),
-                 "ms": cuda_time_ms(lambda: self_attention_bwd(q, k, v, out, dout, lse, rate, seed)),
-                 "plain_ms": cuda_time_ms(lambda: attention_bwd_reference(q, k, v, dout, seed, rate)),
-                 "library_ms": cuda_time_ms(lambda: torch.autograd.grad(lib_out, (qh, kh, vh), dout[:, None],
-                                                                          retain_graph=True)),
-                 "library_no_dropout_ms": cuda_time_ms(lambda: torch.autograd.grad(
+                 **_times(lambda: self_attention_bwd(q, k, v, out, dout, lse, rate, seed),
+                          lambda: attention_bwd_reference(q, k, v, dout, seed, rate),
+                          lambda: torch.autograd.grad(lib_out, (qh, kh, vh), dout[:, None], retain_graph=True)),
+                 "library_no_dropout_ms": device_ms(lambda: torch.autograd.grad(
                      lib_out_nodrop, (qh, kh, vh), dout[:, None], retain_graph=True)),
                  **_k2_bound(4 * (8 * B * S * D + B * S), 10 * B * S * S * D)})
 
@@ -256,8 +262,7 @@ def check_kernels(device: torch.device) -> list:
     _assert_all_close(got, want, K1_TOL, "K3")
     rows.append({"name": "fused_composite", **k1, "replaces": "neuradar_tpu/ops/volumetric.py:199",
                  "path": "standalone", "shape": [R, S, C], "max_abs_err": _max_err(got, want),
-                 "ms": cuda_time_ms(lambda: fused_composite(alpha, feats, steps)),
-                 "plain_ms": cuda_time_ms(lambda: composite_reference(alpha, feats, steps)), "library_ms": None,
+                 **_times(lambda: fused_composite(alpha, feats, steps), lambda: composite_reference(alpha, feats, steps)),
                  **_bound(4 * (R * S * (C + 3) + R * (C + 2)), R * S * (2 * C + 6))})
     rows[-1]["launches"] = fused_composite.launches
 
@@ -270,17 +275,16 @@ def check_kernels(device: torch.device) -> list:
         table = torch.randn((T, n_feat), generator=gen, device=device)
         idx = torch.randint(0, T, (N,), generator=gen, device=device, dtype=torch.int32)
         got, want = gather.row_gather(table, idx), gather.row_gather_reference(table, idx)
+        gather.check_indices(device)
         _expect(torch.equal(got, want), f"P1 [{T}, {n_feat}] x {N}: the gather differs from its plain version")
         sector_bytes = N * (math.ceil(n_feat * 4 / 32) * 32 + n_feat * 4 + 4)
         rows.append({"name": "row_gather", **p1, "replaces": "tools/probe_mosaic_gather.py:34",
                      "path": "standalone", "shape": [T, n_feat, N], "max_abs_err": float((got - want).abs().max()),
-                     "ms": cuda_time_ms(lambda: gather.row_gather(table, idx)),
-                     # the launch alone, without the wrapper's index check (one host sync)
-                     "kernel_ms": cuda_time_ms(lambda: gather._launch(table, idx)),
-                     "plain_ms": cuda_time_ms(lambda: gather.row_gather_reference(table, idx)),
-                     "library_ms": cuda_time_ms(lambda: torch.index_select(table, 0, idx)),
+                     **_times(lambda: gather.row_gather(table, idx), lambda: gather.row_gather_reference(table, idx),
+                              lambda: torch.index_select(table, 0, idx)),
                      "sector_bound_ms": sector_bytes / HBM_BYTES_PER_S * 1e3,
                      **_bound(N * (2 * n_feat * 4 + 4), 0)})
+        gather.check_indices(device)
         rows[-1]["launches"] = gather.row_gather.launches
         del table, idx, got, want
     return rows

@@ -14,8 +14,11 @@
 // Design: one thread per output row. Where a row is a whole number of 16-byte
 // vectors and both pointers are 16-byte aligned, the row moves as float4
 // loads and stores (one load instruction per 16-byte row); otherwise as
-// floats. Threads past N return (the ragged tail of the last block). Indices
-// are validated by the wrapper; the kernel trusts them.
+// floats. Threads past N return (the ragged tail of the last block). The
+// indices are checked on the card, so the launch never waits on the host: a
+// thread whose index lies outside [0, T) sets the device flag word, writes
+// zeros to its output row and reads nothing of the table; the wrapper reads
+// the flag at its next check (ops/gather.py, check_indices).
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -25,26 +28,39 @@ namespace {
 constexpr int kThreads = 256;
 
 __global__ void row_gather_vec4_kernel(const float4* __restrict__ table, const int* __restrict__ idx,
-                                       float4* __restrict__ out, int N, int F4) {
+                                       float4* __restrict__ out, int* __restrict__ flag, int T, int N, int F4) {
   const long long i = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
   if (i >= N) return;
-  const float4* src = table + static_cast<long long>(__ldg(idx + i)) * F4;
+  const int row = __ldg(idx + i);
   float4* dst = out + i * F4;
+  if (row < 0 || row >= T) {
+    *flag = 1;
+    for (int j = 0; j < F4; ++j) dst[j] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    return;
+  }
+  const float4* src = table + static_cast<long long>(row) * F4;
   for (int j = 0; j < F4; ++j) dst[j] = __ldg(src + j);
 }
 
 __global__ void row_gather_kernel(const float* __restrict__ table, const int* __restrict__ idx,
-                                  float* __restrict__ out, int N, int F) {
+                                  float* __restrict__ out, int* __restrict__ flag, int T, int N, int F) {
   const long long i = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
   if (i >= N) return;
-  const float* src = table + static_cast<long long>(__ldg(idx + i)) * F;
+  const int row = __ldg(idx + i);
   float* dst = out + i * F;
+  if (row < 0 || row >= T) {
+    *flag = 1;
+    for (int j = 0; j < F; ++j) dst[j] = 0.0f;
+    return;
+  }
+  const float* src = table + static_cast<long long>(row) * F;
   for (int j = 0; j < F; ++j) dst[j] = __ldg(src + j);
 }
 
 }  // namespace
 
-extern "C" int row_gather(const void* table, const void* idx, void* out, int N, int F, void* stream) {
+extern "C" int row_gather(const void* table, const void* idx, void* out, void* flag, int T, int N, int F,
+                          void* stream) {
   if (N == 0 || F == 0) return static_cast<int>(cudaGetLastError());
   const int blocks = (N + kThreads - 1) / kThreads;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -52,10 +68,11 @@ extern "C" int row_gather(const void* table, const void* idx, void* out, int N, 
                    reinterpret_cast<std::uintptr_t>(out) % 16 == 0;
   if (vec) {
     row_gather_vec4_kernel<<<blocks, kThreads, 0, s>>>(static_cast<const float4*>(table), static_cast<const int*>(idx),
-                                                       static_cast<float4*>(out), N, F / 4);
+                                                       static_cast<float4*>(out), static_cast<int*>(flag), T, N,
+                                                       F / 4);
   } else {
     row_gather_kernel<<<blocks, kThreads, 0, s>>>(static_cast<const float*>(table), static_cast<const int*>(idx),
-                                                  static_cast<float*>(out), N, F);
+                                                  static_cast<float*>(out), static_cast<int*>(flag), T, N, F);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -32,12 +32,13 @@ _F = ctypes.c_float
 _SIGNATURES = {
     # alpha, feats, w_sky, features, accum, R, S, C, stream
     "composite_sky_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
-    # alpha, feats, dwsky, df, daccum, dalpha, dfeats, R, S, C, stream
+    # alpha, feats, dwsky, df, daccum, dalpha, dfeats, R, S, C, stream (the float4 path, and the general one)
     "composite_sky_bwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "composite_sky_bwd_general": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     # alpha, feats, steps, weights, features, depth, accum, R, S, C, stream
     "composite_fwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
-    # table, idx, out, N, F, stream
-    "row_gather": [_P, _P, _P, _I, _I, _P],
+    # table, idx, out, flag, T, N, F, stream
+    "row_gather": [_P, _P, _P, _P, _I, _I, _I, _P],
     # q, k, v, out, lse, B, S, D, scale, seed, thresh, inv_keep, stream
     "self_attention_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _U, _U, _F, _P],
     # q, k, v, out, dout, lse, delta, dq, dk, dv, B, S, D, scale, seed, thresh, inv_keep, stream

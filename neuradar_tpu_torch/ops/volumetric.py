@@ -81,8 +81,34 @@ def composite_sky_fwd(alpha: torch.Tensor, feats: torch.Tensor) -> Tuple[torch.T
 
 composite_sky_fwd.launches = 0
 
-# the backward kernel keeps two [S] rows per warp in shared memory (csrc/composite_sky.cu)
+# The backward kernel's two paths (csrc/composite_sky.cu): the float4 path takes up to 64 samples
+# and a multiple of 4 channels up to 128, with 16-byte aligned rows; the general path takes the
+# rest, up to 768 samples (two [S] rows per warp in shared memory).
+_FLOAT4_MAX_SAMPLES = 64
+_FLOAT4_MAX_CHANNELS = 128
 _MAX_BWD_SAMPLES = 768
+
+
+def composite_sky_bwd_path(feats: torch.Tensor, df: torch.Tensor) -> str:
+    """Which path of the backward kernel takes these rows: "float4" or "general"."""
+    S, C = feats.shape[-2:]
+    aligned = feats.data_ptr() % 16 == 0 and df.data_ptr() % 16 == 0
+    fits = S <= _FLOAT4_MAX_SAMPLES and C % 4 == 0 and 0 < C <= _FLOAT4_MAX_CHANNELS
+    return "float4" if fits and aligned else "general"
+
+
+def launch_bwd(lib, alpha, feats, dwsky, df, daccum, path: str) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One launch of ``lib``'s K1 backward on checked tensors: the float4 launcher
+    (``composite_sky_bwd``) or the general one."""
+    R, S = alpha.shape
+    dalpha = torch.empty_like(alpha)
+    dfeats = torch.empty_like(feats)
+    stream = torch.cuda.current_stream(alpha.device).cuda_stream
+    fn = lib.composite_sky_bwd if path == "float4" else lib.composite_sky_bwd_general
+    code = fn(alpha.data_ptr(), feats.data_ptr(), dwsky.data_ptr(), df.data_ptr(), daccum.data_ptr(),
+              dalpha.data_ptr(), dfeats.data_ptr(), R, S, feats.shape[-1], stream)
+    build.check(code, f"composite_sky_bwd ({path})")
+    return dalpha, dfeats
 
 
 def composite_sky_bwd(alpha, feats, dwsky, df, daccum) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -96,15 +122,9 @@ def composite_sky_bwd(alpha, feats, dwsky, df, daccum) -> Tuple[torch.Tensor, to
     _check("composite_sky_bwd", (alpha, feats, dwsky, df, daccum), ((R, S), (R, S, C), (R, S), (R, C), (R, 1)))
     if not 0 < S <= _MAX_BWD_SAMPLES:
         raise ValueError(f"composite_sky_bwd takes 1 to {_MAX_BWD_SAMPLES} samples per ray, got {S}")
-    lib = build.load()
-    dalpha = torch.empty_like(alpha)
-    dfeats = torch.empty_like(feats)
-    stream = torch.cuda.current_stream(alpha.device).cuda_stream
-    code = lib.composite_sky_bwd(alpha.data_ptr(), feats.data_ptr(), dwsky.data_ptr(), df.data_ptr(),
-                                 daccum.data_ptr(), dalpha.data_ptr(), dfeats.data_ptr(), R, S, C, stream)
-    build.check(code, "composite_sky_bwd")
+    out = launch_bwd(build.load(), alpha, feats, dwsky, df, daccum, composite_sky_bwd_path(feats, df))
     composite_sky_bwd.launches += 1
-    return dalpha, dfeats
+    return out
 
 
 composite_sky_bwd.launches = 0

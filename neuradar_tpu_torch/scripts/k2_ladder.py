@@ -9,10 +9,12 @@ example). The variants are probes of what holds the kernels back, not alternativ
 "3mma-unsplit" compute other numbers (one TF32 product is not accurate enough for the port, see
 tests/test_torch_attention_tc.py). Rows: K2 forward at the render path's [4, 3531, 48] (rate 0)
 and at the train path's [16, 3531, 48] (rate 0.1 and 0), and the backward at the train shape
-(rate 0.1 and 0). Times are medians of CUDA-event timed launches; each variant runs a row in
-turn, in order and then in reverse, and a row's time is the median over both turns. One JSON
-line per variant and row, with the max abs error against the plain version; the first line names
-the card and its power limit.
+(rate 0.1 and 0). ``ms`` is the device time alone (utils/timing.device_ms: ``--reps`` launches
+queued behind a spin of the card, one event pair) and ``call_ms`` one launch's time with its host
+work (an event pair around each launch, the median); each variant runs a row in turn, in order
+and then in reverse, and a row's times are the medians over both turns. One JSON line per variant
+and row, with the max abs error against the plain version; the first line names the card and its
+power limit.
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ from pathlib import Path
 import torch
 
 from neuradar_tpu_torch.ops import attention, build
+from neuradar_tpu_torch.utils.timing import call_ms, device_ms
 
 SOURCE = build.CSRC / "attention.cu"
 OUT_DIR = build.BUILD_DIR.parent / "k2_ladder"
@@ -63,20 +66,6 @@ def variant_source(name: str) -> str:
             raise RuntimeError(f"variant {name}: {old!r} is not in {SOURCE} exactly once")
         text = text.replace(old, new)
     return text
-
-
-def _time_ms(fn, reps: int) -> float:
-    for _ in range(3):
-        fn()
-    times = []
-    for _ in range(reps):
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
 
 
 def main(argv=None) -> int:
@@ -120,13 +109,15 @@ def main(argv=None) -> int:
 
         errs = {n: max(float((g - w).abs().max()) for g, w in zip(run(lib), want)) for n, lib in libs.items()}
         times = {n: [] for n in libs}
+        calls = {n: [] for n in libs}
         for order in (list(libs), list(reversed(libs))):
             for n in order:
-                times[n].append(_time_ms(lambda: run(libs[n]), args.reps))
+                times[n].append(device_ms(lambda: run(libs[n]), args.reps))
+                calls[n].append(call_ms(lambda: run(libs[n]), args.reps))
         for n in libs:
             print(json.dumps({"variant": n, "probes": about[n], "row": row, "shape": [B, S, D], "dropout": rate,
-                              "ms": statistics.median(times[n]), "turns_ms": times[n], "max_abs_err": errs[n]}),
-                  flush=True)
+                              "ms": statistics.median(times[n]), "turns_ms": times[n],
+                              "call_ms": statistics.median(calls[n]), "max_abs_err": errs[n]}), flush=True)
         del q, k, v, dout, want, out, lse
     return 0
 

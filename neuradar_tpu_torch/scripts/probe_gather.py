@@ -4,12 +4,14 @@ package's tools/probe_mosaic_gather.py up to one static hash grid's table, [8 * 
 
     python -m neuradar_tpu_torch.scripts.probe_gather [--reps 20]
 
-One JSON line per shape: the kernel alone (``kernel_ms``), the wrapper with its index check
-(``ms``), ``torch.index_select`` on the same inputs (``library_ms``), and two bounds at the card's
-3.35 TB/s: by the bytes the gather needs (``bound_ms``: a row read, a row written and 4 index
-bytes per index) and by the 32-byte sectors a random read costs (``sector_bound_ms``). Times are
-medians of CUDA-event timed launches after warm-up. The first line names the card and its power
-limit. The indices are uniform at random, as a hash grid's corners are.
+One JSON line per shape: the wrapper's device time alone (``ms``, utils/timing.device_ms: launches
+queued behind a spin of the card, one event pair; the wrapper checks the indices on the card and
+never syncs), one call's time with its host work (``call_ms``), ``torch.index_select`` on the same
+inputs (``library_ms``, device time), and two bounds at 3.35 TB/s (the data-sheet rate of an NVIDIA
+H100 80GB HBM3 at 700.00 W): by the bytes the gather needs (``bound_ms``: a row read, a row written
+and 4 index bytes per index) and by the 32-byte sectors a random read costs (``sector_bound_ms``).
+The first line names the card and its power limit. The indices are uniform at random, as a hash
+grid's corners are.
 """
 
 from __future__ import annotations
@@ -17,12 +19,12 @@ from __future__ import annotations
 import argparse
 import json
 import math
-import statistics
 import subprocess
 
 import torch
 
 from neuradar_tpu_torch.ops import gather
+from neuradar_tpu_torch.utils.timing import call_ms, device_ms
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 SHAPES = (  # (table rows, features, indices)
@@ -32,20 +34,6 @@ SHAPES = (  # (table rows, features, indices)
     (2**22, 4, 2**22),
     (8 * 2**22, 4, 2**22),
 )
-
-
-def _time_ms(fn, reps: int) -> float:
-    for _ in range(3):
-        fn()
-    times = []
-    for _ in range(reps):
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
 
 
 def main(argv=None) -> int:
@@ -66,15 +54,15 @@ def main(argv=None) -> int:
             raise RuntimeError(f"[{T}, {F}] x {N}: the kernel differs from its plain version")
         need = N * (2 * F * 4 + 4)
         sectors = N * (math.ceil(F * 4 / 32) * 32 + F * 4 + 4)
-        kernel_ms = _time_ms(lambda: gather._launch(table, idx), args.reps)
+        ms = device_ms(lambda: gather.row_gather(table, idx), args.reps)
         print(json.dumps({
-            "table": [T, F], "indices": N, "table_mib": T * F * 4 / 2**20,
-            "kernel_ms": kernel_ms,
-            "ms": _time_ms(lambda: gather.row_gather(table, idx), args.reps),
-            "library_ms": _time_ms(lambda: torch.index_select(table, 0, idx), args.reps),
+            "table": [T, F], "indices": N, "table_mib": T * F * 4 / 2**20, "ms": ms,
+            "call_ms": call_ms(lambda: gather.row_gather(table, idx), args.reps),
+            "library_ms": device_ms(lambda: torch.index_select(table, 0, idx), args.reps),
             "bound_ms": need / HBM_BYTES_PER_S * 1e3, "sector_bound_ms": sectors / HBM_BYTES_PER_S * 1e3,
-            "kernel_gb_per_s": need / kernel_ms / 1e6,
+            "gb_per_s": need / ms / 1e6,
         }), flush=True)
+        gather.check_indices(device)
         del table, idx
     return 0
 

@@ -16,8 +16,10 @@ range's span on the device, first kernel to last, which the profiler's key
 averages report for some ranges in its place; the backward's device time,
 which is the busy time less the forward and the optimizer (autograd runs the
 backward on its own device thread, outside the step's labelled ranges); the
-largest kernels under each model layer's label; and the kernels with the
-most device time overall. ``--out`` also writes the whole record as one JSON file. Needs CUDA.
+largest kernels under each model layer's label; the kernels with the
+most device time overall; and each of the port's hand-written kernels
+(K1, K2, K3, P1) that ran in the step, with its calls and device ms per
+call, to hold beside chip_smoke.py's kernel times. ``--out`` also writes the whole record as one JSON file. Needs CUDA.
 """
 
 from __future__ import annotations
@@ -35,6 +37,8 @@ from torch.profiler import ProfilerActivity, profile
 from neuradar_tpu_torch.configs.method_configs import method_configs
 from neuradar_tpu_torch.engine.trainer import Trainer
 
+# name fragments of the hand-written kernels in csrc/ (K1 forward and backward, K3, K2, P1)
+PORT_KERNELS = ("composite_sky", "composite_fwd", "attention_", "row_gather")
 LABELS = ("train/forward", "train/optimizer", "proposal_sampling", "field", "hash_encode", "composite_sky",
           "rgb_decoder", "radar_decoder", "losses")
 
@@ -121,15 +125,19 @@ def main(argv=None) -> int:
     busy = _busy_ms(events)
     layers = {label: _kernels_under(events, label, 8) for label in LABELS}
     labels = {label: layer["kernel_ms"] for label, layer in layers.items()}
-    kernels = sorted((a for a in prof.key_averages() if a.device_type == torch.autograd.DeviceType.CUDA),
-                     key=lambda a: a.self_device_time_total, reverse=True)[:args.top]
+    on_device = [a for a in prof.key_averages() if a.device_type == torch.autograd.DeviceType.CUDA]
+    kernels = sorted(on_device, key=lambda a: a.self_device_time_total, reverse=True)[:args.top]
+    port = [{"name": a.key[:120], "calls": a.count, "device_ms": a.self_device_time_total / 1e3,
+             "device_ms_per_call": a.self_device_time_total / 1e3 / a.count}
+            for a in on_device if a.key not in LABELS and any(k in a.key for k in PORT_KERNELS)]
     trace = {"traced_wall_ms": traced_wall * 1e3, "device_busy_ms": busy,
              "idle_share": 1.0 - busy / (traced_wall * 1e3), "label_device_ms": labels,
              "label_device_span_ms": {label: layer["device_span_ms"] for label, layer in layers.items()},
              "backward_device_ms": busy - labels["train/forward"] - labels["train/optimizer"],
              "label_kernels": {label: layers[label]["top"] for label in LABELS[2:]},
              "top_kernels": [{"name": a.key[:120], "device_ms": a.self_device_time_total / 1e3, "calls": a.count}
-                             for a in kernels]}
+                             for a in kernels],
+             "port_kernels": port}
     print(json.dumps({"phase": "trace", **trace}), flush=True)
     trainer.shutdown()
     if args.out:

@@ -4,8 +4,9 @@ On the CPU the wrappers run their plain PyTorch versions, which are held here ag
 package: K3 against ``fused_composite`` in interpret mode and against the XLA formulation of
 tests/test_pallas_ops.py, P1 against the reference of tools/probe_mosaic_gather.py
 (``np.asarray(table2d)[idx]``) on the probe's own inputs. The tests marked ``cuda`` hold each CUDA
-kernel against its plain version on the card at ragged sizes and skip without one; JAX is imported
-inside the fixtures only, so they also run where JAX is absent:
+kernel against its plain version on the card at ragged sizes, and P1's deferred index check (an
+index out of range raises at ``check_indices``, never at the launch), and skip without a card;
+JAX is imported inside the fixtures only, so they also run where JAX is absent:
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_kernels3.py
 """
 
@@ -153,7 +154,43 @@ def test_kernel_wrappers_refuse_what_they_do_not_run_k3_p1(cuda):
     with pytest.raises(ValueError):
         t_volumetric.fused_composite(alpha, feats, steps[:, :-1].contiguous())
     table = torch.randn((10, 4), device=cuda)
+    t_gather.check_indices(cuda)
+    t_gather.row_gather(table, torch.tensor([0, 10], dtype=torch.int32, device=cuda))  # flagged on the card
     with pytest.raises(IndexError):
-        t_gather.row_gather(table, torch.tensor([0, 10], dtype=torch.int32, device=cuda))
+        t_gather.check_indices(cuda)
     with pytest.raises(ValueError):
         t_gather.row_gather(table, torch.tensor([0, 1], dtype=torch.int32))  # indices on the host
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("F", [4, 3])
+def test_row_gather_kernel_flags_out_of_range_indices(cuda, F):
+    """On the card a bad index raises at check_indices, not at the launch; its output row is zeros
+    and the rest of the gather is exact (F = 4 takes the 16-byte path, F = 3 the scalar one)."""
+    table = torch.randn((1000, F), device=cuda)
+    idx = torch.randint(0, 1000, (4099,), device=cuda, dtype=torch.int32)
+    bad = torch.tensor([5, 700, 4098], device=cuda)
+    idx[bad] = torch.tensor([-1, 1000, 2**31 - 1], dtype=torch.int32, device=cuda)
+    t_gather.check_indices(cuda)
+    got = t_gather.row_gather(table, idx)
+    torch.cuda.synchronize()
+    with pytest.raises(IndexError):
+        t_gather.check_indices(cuda)
+    t_gather.check_indices(cuda)  # the check cleared the flag
+    want = t_gather.row_gather_reference(table, idx.clamp(0, 999))
+    want[bad] = 0.0
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_row_gather_kernel_does_not_sync_the_host(cuda):
+    table = torch.randn((2**16, 4), device=cuda)
+    idx = torch.randint(0, 2**16, (2**16,), device=cuda, dtype=torch.int32)
+    t_gather.row_gather(table, idx)  # builds and loads the library, makes the flag word
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = t_gather.row_gather(table, idx)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert torch.equal(got, t_gather.row_gather_reference(table, idx))
+    t_gather.check_indices(cuda)

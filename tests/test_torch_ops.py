@@ -109,13 +109,20 @@ def _k1_cotangents(R, S, C, seed=2):
             rng.normal(size=(R, 1)).astype(np.float32))
 
 
-@pytest.mark.parametrize("which", ["pallas_interpret", "xla"])
-def test_composite_sky_bwd_plain_matches_jax(jax_volumetric, which):
+# (which, S, C): the train shape's S = 33 and C = 32, then one sample (the sky sample alone), more
+# samples than the CUDA kernel's float4 path takes, and a C that is no power of two
+K1_BWD_JAX_CASES = [pytest.param(which, S, C, id=which + suffix) for S, C, suffix in
+                    ((33, 32, ""), (1, 32, "-S1"), (65, 32, "-S65"), (33, 40, "-C40"))
+                    for which in ("pallas_interpret", "xla")]
+
+
+@pytest.mark.parametrize("which,S,C", K1_BWD_JAX_CASES)
+def test_composite_sky_bwd_plain_matches_jax(jax_volumetric, which, S, C):
     """jax.vjp of fused_composite_sky in interpret mode reaches _sky_pallas_bwd; daccum is nonzero."""
     import jax
 
     fused, xla = jax_volumetric
-    alpha, feats = _k1_inputs(R=200)
+    alpha, feats = _k1_inputs(R=200, S=S, C=C)
     cots = _k1_cotangents(*feats.shape)
     fn = (lambda a, f: fused(a, f, True)) if which == "pallas_interpret" else xla
     _, vjp = jax.vjp(fn, alpha, feats)
@@ -212,14 +219,55 @@ def test_attention_kernel_matches_plain(cuda, S, D):
                                **K2_TOL)
 
 
+# K1 backward on the card: S = 1, 2 and the ragged halves around 32 and 64 take the float4 path
+# (with C = 32, 40 and 64), S = 65 and 768 and C = 1 the general one; R = 37 leaves the last block
+# of 8 rays partly empty
+K1_BWD_RAYS = (1, 37, 4096)
+K1_BWD_SAMPLES = (1, 2, 31, 32, 33, 64, 65, 768)
+K1_BWD_CHANNELS = (1, 32, 40, 64)
+
+
+def _k1_bwd_card_inputs(cuda, R, S, C):
+    alpha, feats = (torch.from_numpy(x).to(cuda) for x in _k1_inputs(R=R, S=S, C=C))
+    return (alpha, feats, *(torch.from_numpy(x).to(cuda) for x in _k1_cotangents(R, S, C)))
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("R,C", [(1, 32), (37, 40), (4096, 32)])
-def test_composite_sky_bwd_kernel_matches_plain(cuda, R, C):
-    alpha, feats = (torch.from_numpy(x).to(cuda) for x in _k1_inputs(R=R, C=C))
-    cots = [torch.from_numpy(x).to(cuda) for x in _k1_cotangents(R, 33, C)]
-    got = t_volumetric.composite_sky_bwd(alpha, feats, *cots)
-    want = t_volumetric.composite_sky_bwd_reference(alpha, feats, *cots)
+@pytest.mark.parametrize("C", K1_BWD_CHANNELS)
+@pytest.mark.parametrize("S", K1_BWD_SAMPLES)
+@pytest.mark.parametrize("R", K1_BWD_RAYS)
+def test_composite_sky_bwd_kernel_matches_plain(cuda, R, S, C):
+    inputs = _k1_bwd_card_inputs(cuda, R, S, C)
+    path = t_volumetric.composite_sky_bwd_path(inputs[1], inputs[3])
+    assert path == ("float4" if S <= 64 and C % 4 == 0 else "general")
+    before = t_volumetric.composite_sky_bwd.launches
+    got = t_volumetric.composite_sky_bwd(*inputs)
+    assert t_volumetric.composite_sky_bwd.launches == before + 1
+    want = t_volumetric.composite_sky_bwd_reference(*inputs)
     for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, **K1_BWD_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R,S,C", [(113840, 33, 32), (4096, 65, 40)])
+def test_composite_sky_bwd_kernel_is_deterministic(cuda, R, S, C):
+    """No atomics, on either path: two launches on the same inputs agree bit for bit."""
+    inputs = _k1_bwd_card_inputs(cuda, R, S, C)
+    first, second = t_volumetric.composite_sky_bwd(*inputs), t_volumetric.composite_sky_bwd(*inputs)
+    for a, b, name in zip(first, second, ("dalpha", "dfeats")):
+        assert torch.equal(a, b), name
+
+
+@pytest.mark.cuda
+def test_composite_sky_bwd_unaligned_rows_take_the_general_path(cuda):
+    """feats 4 bytes past a 16-byte boundary: the float4 path cannot load its rows."""
+    alpha, feats, *cots = _k1_bwd_card_inputs(cuda, 37, 33, 32)
+    flat = torch.empty(feats.numel() + 1, device=cuda)
+    flat[1:] = feats.reshape(-1)
+    shifted = flat[1:].view(feats.shape)
+    assert shifted.is_contiguous() and t_volumetric.composite_sky_bwd_path(shifted, cots[1]) == "general"
+    got = t_volumetric.composite_sky_bwd(alpha, shifted, *cots)
+    for g, w in zip(got, t_volumetric.composite_sky_bwd_reference(alpha, feats, *cots)):
         torch.testing.assert_close(g, w, **K1_BWD_TOL)
 
 
