@@ -24,7 +24,8 @@ Phases, one line each before the final JSON line:
      bit;
      K3 (fused_composite) and P1 (row_gather), which no path runs, at the
      shapes of a render chunk and of the gather probe up to a hash grid's
-     table, with the launches of their own checks ("standalone");
+     table (and a proposal grid's, on P1's scalar path; P1's rows name their
+     path), with the launches of their own checks ("standalone");
   4. render: the neuradar-synthetic model at full width with seeded random
      weights renders 2 camera frames at 720 x 1296, one 16,384-ray lidar scan
      and 4 radar scans; the launch counts show K1 and K2 ran on that path;
@@ -91,6 +92,7 @@ from neuradar_tpu_torch.pipelines.ad_neuradar_pipeline import ADNeuRadarPipeline
 from neuradar_tpu_torch.scripts import eval as eval_script
 from neuradar_tpu_torch.scripts import train as train_script
 from neuradar_tpu_torch.scripts import validate_learning
+from neuradar_tpu_torch.scripts.probe_gather import bounds_ms
 from neuradar_tpu_torch.utils.timing import call_ms, device_ms, kernels_ms
 
 K1_TOL = dict(rtol=1e-5, atol=1e-6)
@@ -266,23 +268,25 @@ def check_kernels(device: torch.device) -> list:
                  **_bound(4 * (R * S * (C + 3) + R * (C + 2)), R * S * (2 * C + 6))})
     rows[-1]["launches"] = fused_composite.launches
 
-    # P1 at the probe's shape and at one static hash grid's table (8 x 2^22 rows of 4 features, 512 MiB)
-    # with 2^22 random indices; exact. A random row of 16 bytes costs a whole 32-byte sector to read,
-    # so the row also gives the bound by sectors beside the bound by the bytes the function needs.
+    # P1 at the probe's shape, at one static hash grid's table (8 x 2^22 rows of 4 features, 512 MiB)
+    # and at a proposal grid's (6 x 2^20 rows of 1 feature, the scalar path), each with 2^22 random
+    # indices; exact. A random row of 16 bytes costs a whole 32-byte sector to read, so the row also
+    # gives the bound by sectors beside the bound by the bytes the function needs. "design" names the
+    # kernel's path.
     p1 = {"route": "cuda", "source": "neuradar_tpu_torch/csrc/gather.cu"}
-    for T, n_feat, N in ((4096, 8, 1024), (8 * 2**22, 4, 2**22)):
+    for T, n_feat, N in ((4096, 8, 1024), (8 * 2**22, 4, 2**22), (6 * 2**20, 1, 2**22)):
         gather.row_gather.launches = 0
         table = torch.randn((T, n_feat), generator=gen, device=device)
         idx = torch.randint(0, T, (N,), generator=gen, device=device, dtype=torch.int32)
         got, want = gather.row_gather(table, idx), gather.row_gather_reference(table, idx)
         gather.check_indices(device)
         _expect(torch.equal(got, want), f"P1 [{T}, {n_feat}] x {N}: the gather differs from its plain version")
-        sector_bytes = N * (math.ceil(n_feat * 4 / 32) * 32 + n_feat * 4 + 4)
         rows.append({"name": "row_gather", **p1, "replaces": "tools/probe_mosaic_gather.py:34",
-                     "path": "standalone", "shape": [T, n_feat, N], "max_abs_err": float((got - want).abs().max()),
+                     "path": "standalone", "shape": [T, n_feat, N], "design": gather.row_gather_path(table),
+                     "max_abs_err": float((got - want).abs().max()),
                      **_times(lambda: gather.row_gather(table, idx), lambda: gather.row_gather_reference(table, idx),
                               lambda: torch.index_select(table, 0, idx)),
-                     "sector_bound_ms": sector_bytes / HBM_BYTES_PER_S * 1e3,
+                     "sector_bound_ms": bounds_ms(n_feat, N)["sector_bound_ms"],
                      **_bound(N * (2 * n_feat * 4 + 4), 0)})
         gather.check_indices(device)
         rows[-1]["launches"] = gather.row_gather.launches

@@ -5,7 +5,8 @@ this gather lower on a TPU; the port keeps the function as a kernel and a
 microbenchmark (``scripts/probe_gather.py``), since a hash-grid encode is one
 such random row read per corner. On CUDA tensors ``row_gather`` launches the
 hand-written kernel in ``csrc/gather.cu``; on CPU tensors it runs the plain
-version ``row_gather_reference``. An out-of-range index raises ``IndexError``:
+version ``row_gather_reference``. The kernel takes one of two paths, named by ``row_gather_path``
+from the row width and the table's alignment alone. An out-of-range index raises ``IndexError``:
 on the CPU at once; on the card at the next ``check_indices(device)``, since
 the kernel checks the indices itself and flags a bad one in a device word
 (its output row is zeros), so that a launch never waits on the host.
@@ -23,6 +24,14 @@ _flags = {}  # device -> int32 [1] flag word that the kernel sets on an index ou
 def row_gather_reference(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch P1."""
     return table[idx.long()]
+
+
+def row_gather_path(table: torch.Tensor) -> str:
+    """The path csrc/gather.cu's ``row_gather`` takes for this table (it chooses it itself, from the
+    same facts; the output the wrapper allocates is always 16-byte aligned): rows as float4s ("vec4")
+    where F is a multiple of 4 and the table 16-byte aligned, else as floats ("scalar"). The indices
+    are loaded one by one on either path, so their alignment does not matter."""
+    return "vec4" if table.shape[1] % 4 == 0 and table.data_ptr() % 16 == 0 else "scalar"
 
 
 def _flag(device: torch.device) -> torch.Tensor:
@@ -60,13 +69,13 @@ def row_gather(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     if not (table.is_contiguous() and idx.is_contiguous()):
         raise ValueError("row_gather takes contiguous tensors")
     (T, F), N = table.shape, idx.shape[0]
-    lib = build.load()
     out = torch.empty((N, F), dtype=table.dtype, device=table.device)
-    stream = torch.cuda.current_stream(table.device).cuda_stream
-    code = lib.row_gather(table.data_ptr(), idx.data_ptr(), out.data_ptr(), _flag(table.device).data_ptr(), T, N, F,
-                          stream)
-    build.check(code, "row_gather")
-    row_gather.launches += 1
+    if N and F:
+        stream = torch.cuda.current_stream(table.device).cuda_stream
+        code = build.load().row_gather(table.data_ptr(), idx.data_ptr(), out.data_ptr(),
+                                       _flag(table.device).data_ptr(), T, N, F, stream)
+        build.check(code, "row_gather")
+        row_gather.launches += 1
     return out
 
 

@@ -4,9 +4,9 @@ package's tools/probe_mosaic_gather.py up to one static hash grid's table, [8 * 
 
     python -m neuradar_tpu_torch.scripts.probe_gather [--reps 20]
 
-One JSON line per shape: the wrapper's device time alone (``ms``, utils/timing.device_ms: launches
-queued behind a spin of the card, one event pair; the wrapper checks the indices on the card and
-never syncs), one call's time with its host work (``call_ms``), ``torch.index_select`` on the same
+One JSON line per shape: the kernel's path (``path``, ops.gather.row_gather_path), the wrapper's
+device time alone (``ms``, utils/timing.device_ms: launches queued behind a spin of the card, one
+event pair; the wrapper checks the indices on the card and never syncs), one call's time with its host work (``call_ms``), ``torch.index_select`` on the same
 inputs (``library_ms``, device time), and two bounds at 3.35 TB/s (the data-sheet rate of an NVIDIA
 H100 80GB HBM3 at 700.00 W): by the bytes the gather needs (``bound_ms``: a row read, a row written
 and 4 index bytes per index) and by the 32-byte sectors a random read costs (``sector_bound_ms``).
@@ -36,6 +36,14 @@ SHAPES = (  # (table rows, features, indices)
 )
 
 
+def bounds_ms(F: int, N: int) -> dict:
+    """The two bounds of a gather of N rows of F floats at HBM_BYTES_PER_S: by the bytes it needs (a row
+    read, a row written and 4 index bytes per index) and by the 32-byte sectors a random read costs."""
+    need = N * (2 * F * 4 + 4)
+    sectors = N * (math.ceil(F * 4 / 32) * 32 + F * 4 + 4)
+    return {"bound_ms": need / HBM_BYTES_PER_S * 1e3, "sector_bound_ms": sectors / HBM_BYTES_PER_S * 1e3}
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser()
     parser.add_argument("--reps", type=int, default=20)
@@ -52,15 +60,12 @@ def main(argv=None) -> int:
         idx = torch.randint(0, T, (N,), generator=gen, device=device, dtype=torch.int32)
         if not torch.equal(gather.row_gather(table, idx), gather.row_gather_reference(table, idx)):
             raise RuntimeError(f"[{T}, {F}] x {N}: the kernel differs from its plain version")
-        need = N * (2 * F * 4 + 4)
-        sectors = N * (math.ceil(F * 4 / 32) * 32 + F * 4 + 4)
         ms = device_ms(lambda: gather.row_gather(table, idx), args.reps)
         print(json.dumps({
-            "table": [T, F], "indices": N, "table_mib": T * F * 4 / 2**20, "ms": ms,
-            "call_ms": call_ms(lambda: gather.row_gather(table, idx), args.reps),
+            "table": [T, F], "indices": N, "table_mib": T * F * 4 / 2**20, "path": gather.row_gather_path(table),
+            "ms": ms, "call_ms": call_ms(lambda: gather.row_gather(table, idx), args.reps),
             "library_ms": device_ms(lambda: torch.index_select(table, 0, idx), args.reps),
-            "bound_ms": need / HBM_BYTES_PER_S * 1e3, "sector_bound_ms": sectors / HBM_BYTES_PER_S * 1e3,
-            "gb_per_s": need / ms / 1e6,
+            **bounds_ms(F, N), "gb_per_s": N * (2 * F * 4 + 4) / ms / 1e6,
         }), flush=True)
         gather.check_indices(device)
         del table, idx

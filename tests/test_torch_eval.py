@@ -28,6 +28,7 @@ from neuradar_tpu.pipelines import ad_neuradar_pipeline as j_pipeline
 from neuradar_tpu_torch.configs import cli as t_cli
 from neuradar_tpu_torch.configs.method_configs import get_method as t_get_method
 from neuradar_tpu_torch.data import datamanager as t_dm
+from neuradar_tpu_torch.data.dataparsers import synthetic as t_synthetic
 from neuradar_tpu_torch.engine import optimizers as t_opt
 from neuradar_tpu_torch.engine.trainer import Trainer, TrainerConfig
 from neuradar_tpu_torch.model_components import fid as t_fid
@@ -56,6 +57,8 @@ TINY_ARGV = [
     "--pipeline.model.sampling.proposal_field_2.grid.actor.log2_hashmap_size", "9",
     "--pipeline.model.sampling.num_proposal_samples", "16,8", "--pipeline.model.sampling.num_nerf_samples", "6",
 ]
+TINY_RADAR_FOV = dict(min_azimuth=-0.8, max_azimuth=0.8, min_elevation=-0.08, max_elevation=0.32,
+                      azimuth_step=0.1, elevation_step=0.1)  # 16 x 4 rays a scan
 CADENCE_ARGV = ["--steps_per_eval_batch", "2", "--steps_per_eval_image", "3", "--steps_per_eval_all_images", "4",
                 "--steps_per_eval_all_radars", "4", "--steps_per_save", "3", "--steps_per_log", "1"]
 
@@ -282,12 +285,18 @@ def test_metric_tracker_matches_jax():
 
 @pytest.fixture(scope="module")
 def cli_run(tmp_path_factory):
-    """A 7-step tiny run of the train command on the CPU with every cadence, all checkpoints kept."""
+    """A 7-step tiny run of the train command on the CPU with every cadence, all checkpoints kept.
+    The synthetic scene's radar FoV is cut from the ZOD grid (107 x 33 rays a scan) to the tiny
+    learning check's 16 x 4 (scripts/validate_learning.py) while the tests of this run go, since the
+    command line cannot shrink it; the all-radars eval samples 2 rounds."""
     out = tmp_path_factory.mktemp("runs")
     argv = ["neuradar-synthetic", "--device", "cpu", "--max_num_iterations", "7", "--output_dir", str(out),
-            "--experiment_name", "tiny", "--save_only_latest_checkpoint", "false", *CADENCE_ARGV, *TINY_ARGV]
-    assert t_train_script.main(argv) == 0
-    return out / "tiny" / "neuradar-synthetic"
+            "--experiment_name", "tiny", "--save_only_latest_checkpoint", "false", *CADENCE_ARGV, *TINY_ARGV,
+            "--pipeline.radar_sampling_rounds", "2"]
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(t_synthetic, "ZOD_RADAR_FOV", TINY_RADAR_FOV)
+        assert t_train_script.main(argv) == 0
+        yield out / "tiny" / "neuradar-synthetic"
 
 
 def test_train_command_cadences(cli_run):

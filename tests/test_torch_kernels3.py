@@ -143,6 +143,7 @@ def test_row_gather_kernel_unaligned_table(cuda):
     flat = torch.randn(1000 * 4 + 1, device=cuda)
     table = flat[1:].view(1000, 4)
     idx = torch.randint(0, 1000, (513,), device=cuda, dtype=torch.int32)
+    assert t_gather.row_gather_path(table) == "scalar"
     assert torch.equal(t_gather.row_gather(table, idx), t_gather.row_gather_reference(table, idx))
 
 
@@ -193,4 +194,119 @@ def test_row_gather_kernel_does_not_sync_the_host(cuda):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     assert torch.equal(got, t_gather.row_gather_reference(table, idx))
+    t_gather.check_indices(cuda)
+
+
+# ---------------------------------------------------------------------------- P1's paths
+# csrc/gather.cu gives each thread ROWS_A_THREAD rows, THREADS apart, in blocks of THREADS threads
+ROWS_A_THREAD, THREADS = 1, 128
+PATHS = ("vec4", "scalar")
+
+
+@pytest.mark.parametrize("offset", [0, 1, 2, 3])
+@pytest.mark.parametrize("table_aligned", [True, False])
+@pytest.mark.parametrize("F", [1, 2, 3, 4, 8, 12])
+def test_row_gather_path_is_a_function_of_width_and_alignment(F, table_aligned, offset):
+    """float4 rows where F is a multiple of 4 and the table 16-byte aligned (a fresh tensor is, a view
+    one float in is not), floats otherwise; an idx view at an element offset of 1-3 changes no path.
+    The plain version gives the same rows from such views."""
+    table = torch.randn(1000 * F + 1)[(0 if table_aligned else 1) :][: 1000 * F].view(1000, F)
+    idx = torch.randint(0, 1000, (300 + offset,), dtype=torch.int32)[offset:]
+    assert t_gather.row_gather_path(table) == ("vec4" if F % 4 == 0 and table_aligned else "scalar")
+    assert torch.equal(t_gather.row_gather(table, idx), table[idx.long()])
+
+
+def test_p1_bounds_at_a_hash_grid_table():
+    """[33554432, 4] x 4194304 at 3.35 TB/s: 36 bytes an index by what the gather needs, 52 by the
+    32-byte sector a random 16-byte row costs; the ladder uses the probe's arithmetic."""
+    from neuradar_tpu_torch.scripts import p1_ladder, probe_gather
+
+    got = probe_gather.bounds_ms(4, 4194304)
+    assert round(got["bound_ms"], 4) == 0.0451 and round(got["sector_bound_ms"], 4) == 0.0651
+    assert p1_ladder.bounds_ms is probe_gather.bounds_ms
+    assert (8 * 2**22, 4, 2**22) in p1_ladder.SHAPES and (6 * 2**20, 1, 2**22) in p1_ladder.SHAPES
+
+
+@pytest.mark.parametrize("name", ["committed", "rows-2", "rows-4", "rows-8", "threads-256", "threads-512",
+                                  "persistent", "contiguous-4", "contiguous-4-nc", "nc-no-allocate",
+                                  "evict-last-table", "plain-stores"])
+def test_p1_ladder_variants_patch_the_committed_source(name):
+    """Each variant of the ladder is csrc/gather.cu with its lines replaced once each (committed: none)."""
+    from neuradar_tpu_torch.scripts import p1_ladder
+
+    text = p1_ladder.variant_source(name)
+    assert (text == p1_ladder.SOURCE.read_text()) == (name == "committed")
+    for _, new in p1_ladder.VARIANTS[name][1]:
+        assert new in text
+
+
+def _path_inputs(device, path, T, N, offset=0, seed=0):
+    """A table and indices on ``device`` that take ``path`` (F = 4 or 3), idx a view ``offset`` in."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    F = 4 if path == "vec4" else 3
+    table = torch.randn((T, F), generator=gen, device=device)
+    idx = torch.randint(0, T, (N + offset,), generator=gen, device=device, dtype=torch.int32)[offset:]
+    assert t_gather.row_gather_path(table) == path
+    return table, idx
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("F", [1, 2, 3, 4, 8, 12])
+@pytest.mark.parametrize("n", ["0", "1", "R-1", "R", "R+1", "block-1", "block+1", "wrap+1"])
+def test_row_gather_kernel_edge_counts(cuda, F, n):
+    """N = 0, 1, one short of a thread's rows, a thread's rows, one past, one short of and one past a
+    block's rows, and one past the rows of as many blocks as a card holds at once: exact, and no
+    launch for N = 0."""
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    block = THREADS * ROWS_A_THREAD
+    N = {"0": 0, "1": 1, "R-1": ROWS_A_THREAD - 1, "R": ROWS_A_THREAD, "R+1": ROWS_A_THREAD + 1,
+         "block-1": block - 1, "block+1": block + 1, "wrap+1": sms * 2048 * ROWS_A_THREAD + 1}[n]
+    gen = torch.Generator(device=cuda).manual_seed(F * 100 + N)
+    table = torch.randn((5000, F), generator=gen, device=cuda)
+    idx = torch.randint(0, 5000, (N,), generator=gen, device=cuda, dtype=torch.int32)
+    before = t_gather.row_gather.launches
+    got = t_gather.row_gather(table, idx)
+    assert t_gather.row_gather.launches == before + (N > 0)
+    assert got.shape == (N, F) and torch.equal(got, t_gather.row_gather_reference(table, idx))
+    t_gather.check_indices(cuda)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [1, 2, 3])
+@pytest.mark.parametrize("F", [4, 3])
+def test_row_gather_kernel_unaligned_idx(cuda, F, offset):
+    """An idx view at an element offset of 1-3 is gathered exactly, on the path of its table."""
+    table = torch.randn((1000, F), device=cuda)
+    idx = torch.randint(0, 1000, (4099 + offset,), device=cuda, dtype=torch.int32)[offset:]
+    assert t_gather.row_gather_path(table) == ("vec4" if F == 4 else "scalar")
+    assert torch.equal(t_gather.row_gather(table, idx), t_gather.row_gather_reference(table, idx))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("path", PATHS)
+def test_row_gather_kernel_flags_out_of_range_indices_on_each_path(cuda, path, offset):
+    """On every path a bad index (among them the first of a block and the very last) sets the flag and
+    gives a zero row; every other row is exact."""
+    table, idx = _path_inputs(cuda, path, 1000, 4099, offset)
+    bad = torch.tensor([0, THREADS, 700, 4098], device=cuda)
+    idx[bad] = torch.tensor([-1, 1000, -(2**31), 2**31 - 1], dtype=torch.int32, device=cuda)
+    t_gather.check_indices(cuda)
+    got = t_gather.row_gather(table, idx)
+    with pytest.raises(IndexError):
+        t_gather.check_indices(cuda)
+    want = t_gather.row_gather_reference(table, idx.clamp(0, 999))
+    want[bad] = 0.0
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("path", PATHS)
+def test_row_gather_kernel_two_launches_agree(cuda, path, offset):
+    """Two launches on the same inputs give the same bits, and the plain version's."""
+    table, idx = _path_inputs(cuda, path, 70000, 2**16 + 3, offset, seed=1)
+    first = t_gather.row_gather(table, idx)
+    assert torch.equal(t_gather.row_gather(table, idx), first)
+    assert torch.equal(first, t_gather.row_gather_reference(table, idx))
     t_gather.check_indices(cuda)
