@@ -25,19 +25,36 @@ Phases, one line each before the final JSON line:
      K3 (fused_composite) and P1 (row_gather), which no path runs, at the
      shapes of a render chunk and of the gather probe up to a hash grid's
      table (and a proposal grid's, on P1's scalar path; P1's rows name their
-     path), with the launches of their own checks ("standalone");
+     path), with the launches of their own checks ("standalone"); and the
+     kernels of the bf16 train path at its shapes: K1 forward and backward at
+     one of its 8 chunks, K2 at bf16 (self_attention_bf16_fwd / _bwd, from
+     csrc/attention_bf16.cu) at one radar decode group of 4 scans with
+     dropout, against the plain version (which computes in float32 and
+     rounds to bf16 once), with SDPA in bf16 with the same dropout as the
+     library call and the tensor-core bound of the design's bf16 passes;
   4. render: the neuradar-synthetic model at full width with seeded random
      weights renders 2 camera frames at 720 x 1296, one 16,384-ray lidar scan
-     and 4 radar scans; the launch counts show K1 and K2 ran on that path;
+     and 4 radar scans (decoded in the model's 4 groups of 1 scan, the shape of
+     K2's render row); the launch counts show K1 and K2 ran on that path;
   5. train: the neuradar-synthetic trainer at its full width and batch
      (113,840 rays a step), seeded, runs 3 train steps and one eval-loss call;
      each step prints its loss terms, wall time and peak memory; every
      parameter group must have changed, and the launch counts must show all
      four kernels on that path;
-  6. agreement: a tiny scene rendered, and one tiny train step (loss terms and
+  6. train_bf16: the JAX package's production program,
+     configs/bench_program.bench_pipeline_config("full", chunks=8) (bf16
+     compute, hoisted table cast, 8 recomputed chunks, radar in 4 groups; the
+     bench scene of 24 frames at 96 x 156), trained by a Trainer for 3 steps
+     of 113,840 rays, then an eval loss and a camera render, both with the
+     hoisted cast; step seconds, rays/s and peak memory, and K2 at bf16 must
+     have launched forward and backward;
+  7. agreement: a tiny scene rendered, and one tiny train step (loss terms and
      every gradient), through the kernels on the card against the plain
-     versions on the CPU, with the same weights and the same random draws;
-  7. cli_train: the train command (scripts/train.py) on neuradar-synthetic at
+     versions on the CPU, with the same weights and the same random draws; and
+     one tiny bf16 step (2 chunks, 2 radar groups, the VGG loss on) card
+     against CPU, the radar association solved on one fixed cost matrix on
+     both sides (a discrete choice, as in tests/test_torch_bf16_train.py);
+  8. cli_train: the train command (scripts/train.py) on neuradar-synthetic at
      full width and batch, 6 steps with every eval cadence and checkpoints
      (all kept), then resumed from its checkpoints to step 8 (only the latest
      kept), then the eval command (scripts/eval.py) on the run; the events
@@ -45,9 +62,10 @@ Phases, one line each before the final JSON line:
      every metric of the three families must be finite, and K1 and K2 must
      have launched; the run's logs stay in chiprun_out/runs, its checkpoints
      are deleted;
-  8. learning: scripts/validate_learning.py at the tiny scale, 300 steps on
-     the card, must print LEARNING CHECK: PASS; its first- and last-quarter
-     means are printed beside those of the JAX package's CPU curve
+  9. learning: scripts/validate_learning.py at the tiny scale, 300 steps on
+     the card, bf16 (the dtype of the JAX curve) and then float32, must print
+     LEARNING CHECK: PASS; the first- and last-quarter means of both are
+     printed beside those of the JAX package's CPU curve
      (artifacts/learning_curve_cpu_tiny_20k.json) over its first 300 steps.
 The line before the last lists every kernel as JSON; the last line is
 {"ok": true, "device": {...}}. Any failure raises, and the script exits
@@ -68,14 +86,20 @@ from pathlib import Path
 import torch
 import torch.nn.functional as F
 
+from neuradar_tpu_torch.configs.bench_program import bench_pipeline_config, bench_scene_outputs
 from neuradar_tpu_torch.configs.method_configs import method_configs
 from neuradar_tpu_torch.data.datamanager import ADDataManagerConfig
 from neuradar_tpu_torch.data.dataparsers.synthetic import SyntheticDataParser, SyntheticDataParserConfig
-from neuradar_tpu_torch.engine.trainer import Trainer
+from neuradar_tpu_torch.engine.optimizers import default_optimizer_groups
+from neuradar_tpu_torch.engine.trainer import Trainer, TrainerConfig
+from neuradar_tpu_torch.model_components import radar_utils
+from neuradar_tpu_torch.models.neuradar import radar_decode_groups
 from neuradar_tpu_torch.ops import build, gather
 from neuradar_tpu_torch.ops.attention import (
     attention_bwd_reference,
     attention_reference,
+    self_attention_bf16_bwd,
+    self_attention_bf16_fwd,
     self_attention_bwd,
     self_attention_fwd,
 )
@@ -100,6 +124,13 @@ K2_TOL = dict(rtol=1e-4, atol=1e-5)  # online softmax sums in another order than
 # backward: suffix sums and dS sums are taken in other orders than autograd through the plain versions
 K1_BWD_TOL = dict(rtol=1e-4, atol=1e-5)
 K2_BWD_TOL = dict(rtol=2e-4, atol=2e-5)
+# K2 at bf16 against the plain version: both round one float32 result to bf16, so the two are equal
+# or one bf16 unit apart (rtol 2^-7), atol for entries near 0; the float32 output before its rounding
+# to the float32 sums' order and the kernel's two-pass split (tests/test_torch_attention_bf16.py
+# derives these)
+K2_BF16_TOL = dict(rtol=2.0**-7, atol=2.0**-12)
+K2_BF16_BWD_TOL = dict(rtol=2.0**-7, atol=2.0**-10)
+K2_OUT32_TOL = dict(rtol=1e-4, atol=2e-5)
 TINY_TOL = dict(rtol=1e-4, atol=1e-4)
 # a train step: loss terms to float32 summation order; gradients as in tests/test_torch_train.py:
 # rtol 1e-3, atol 1e-4 of the parameter's largest gradient, at least 1e-7. A parameter whose
@@ -116,17 +147,31 @@ ZERO_GRAD = 1e-6
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
 TF32_FLOPS = 495e12
+BF16_FLOPS = 989e12
 # the plain versions' calls timed behind one spin of the card (see _times)
 PLAIN_REPS = 1
 # K2's kernels run each float32 product as three TF32 products on the tensor cores (3xTF32)
 K2_DESIGN = "3xtf32-mma.sync"
+# K2 at bf16: bf16 m16n8k16 mma.sync, one pass where both operands are bf16, two where one is P or
+# dS (split hi/lo); its passes of 2*B*S*S*D flops: forward S, P V x 2; backward S^T, dP^T, dV x 2,
+# dK x 2 (dK/dV pass), S, dP, dQ x 2 (dQ pass)
+K2_BF16_DESIGN = "bf16-mma.sync-m16n8k16, P and dS split in two bf16 passes"
+K2_BF16_FWD_PASSES = 3
+K2_BF16_BWD_PASSES = 10
 # the kernels of the render and train paths; K3 (fused_composite) and P1 (row_gather) are on no path
 PATH_KERNELS = (composite_sky_fwd, composite_sky_bwd, self_attention_fwd, self_attention_bwd)
+# the kernels of the bf16 train path: K1 takes float32 there too, K2 bf16
+BF16_PATH_KERNELS = (composite_sky_fwd, composite_sky_bwd, self_attention_bf16_fwd, self_attention_bf16_bwd)
+COUNTED_KERNELS = PATH_KERNELS + BF16_PATH_KERNELS[2:]
+# the bf16 train path: the JAX package's benchmark program, 8 chunks of 14,230 rays
+BF16_CHUNKS = 8
 # The full-width train step runs the per-ray core unchunked, as the preset does: it fits (51 GB
 # peak on an 80 GB card) and is 1.8x faster than 8 chunks recomputed in the backward pass. The
 # tiny train agreement runs 2 recomputed chunks, so the checkpointed path runs on the card too.
 NFF_CHUNKS = 1
 TINY_NFF_CHUNKS = 2
+# the radar scans the render path decodes
+RENDER_RADAR_SCANS = (0, 1, 2, 3)
 TRAIN_STEPS = 3
 
 
@@ -161,6 +206,15 @@ def _k2_bound(nbytes: float, flops: float) -> dict:
     return {**_bound(nbytes, flops), "design": K2_DESIGN, "tc_bound_ms": 3 * flops / TF32_FLOPS * 1e3}
 
 
+def _k2_bf16_bound(nbytes: float, flops: float, passes: int, B: int, S: int, D: int) -> dict:
+    """K2 at bf16: bytes over the memory rate or its flops (bf16 operands) over the bf16 tensor-core
+    peak, and the tensor-core bound of its design, its passes of 2*B*S*S*D at that peak."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / BF16_FLOPS * 1e3
+    return {"bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": nbytes, "flops": flops, "design": K2_BF16_DESIGN,
+            "tc_bound_ms": passes * 2 * B * S * S * D / BF16_FLOPS * 1e3}
+
+
 def _max_err(got, want) -> float:
     return max(float((g - w).abs().max()) for g, w in zip(got, want))
 
@@ -168,6 +222,11 @@ def _max_err(got, want) -> float:
 def _assert_all_close(got, want, tol, what):
     for i, (g, w) in enumerate(zip(got, want)):
         torch.testing.assert_close(g, w, **tol, msg=lambda m, i=i: f"{what} output {i}: {m}")
+
+
+def _group_scans(model_config, num_scans: int) -> int:
+    """The scans in one radar decode group, as the model's _decode_radar groups ``num_scans``."""
+    return num_scans // radar_decode_groups(num_scans, model_config.radar_decode_chunks)
 
 
 def check_kernels(device: torch.device) -> list:
@@ -209,8 +268,9 @@ def check_kernels(device: torch.device) -> list:
                           lambda: composite_sky_bwd_reference(alpha, feats, *cots), plain_syncs=True),
                  **_bound(4 * (2 * R * S * C + 3 * R * S + R * C + R), R * S * (3 * C + 12))})
 
-    # K2 forward at the render path's radar batch, dropout 0 (4 scans of the ZOD FoV, d_model 48)
-    B, S, D = 4, 3531, 48
+    # K2 forward at a radar decode group of the render path, dropout 0 (the 4 scans it renders, in
+    # the model's decode groups: 1 scan of the ZOD FoV each, d_model 48)
+    B, S, D = _group_scans(ADNeuRadarPipelineConfig().model, len(RENDER_RADAR_SCANS)), 3531, 48
     q, k, v = (torch.randn((B, S, D), generator=gen, device=device) for _ in range(3))
     got, want = self_attention_fwd(q, k, v), attention_reference(q, k, v)
     torch.testing.assert_close(got, want, **K2_TOL, msg=lambda m: f"K2 fwd: {m}")
@@ -220,9 +280,10 @@ def check_kernels(device: torch.device) -> list:
                           lambda: F.scaled_dot_product_attention(q[:, None], k[:, None], v[:, None])),
                  **_k2_bound(4 * 4 * B * S * D, 4 * B * S * S * D)})
 
-    # K2 forward with dropout and backward at the train batch: 16 scans, rate 0.1, one seed; a second
-    # launch of each must agree bit for bit (no atomics)
-    B, rate, seed = 16, 0.1, 1234
+    # K2 forward with dropout and backward at a radar decode group of the train path (the preset decodes
+    # its 16 scans in 4 groups of 4), rate 0.1, one seed; a second launch of each must agree bit for bit
+    preset = method_configs["neuradar-synthetic"]().pipeline
+    B, rate, seed = _group_scans(preset.model, preset.datamanager.num_radar_scans), 0.1, 1234
     q, k, v, dout = (torch.randn((B, S, D), generator=gen, device=device) for _ in range(4))
     out, lse = self_attention_fwd(q, k, v, rate, seed, return_lse=True)
     want = attention_reference(q, k, v, seed, rate)
@@ -252,6 +313,72 @@ def check_kernels(device: torch.device) -> list:
                  "library_no_dropout_ms": device_ms(lambda: torch.autograd.grad(
                      lib_out_nodrop, (qh, kh, vh), dout[:, None], retain_graph=True)),
                  **_k2_bound(4 * (8 * B * S * D + B * S), 10 * B * S * S * D)})
+
+    # the bf16 train path: K1 forward and backward at one of its 8 chunks (K1 takes float32 there), and
+    # K2 at bf16 at one radar decode group (4 scans of the ZOD FoV, d_model 48, rate 0.1)
+    R, S1, C = 113840 // BF16_CHUNKS, 33, 32
+    alpha = torch.rand((R, S1), generator=gen, device=device)
+    feats = torch.randn((R, S1, C), generator=gen, device=device)
+    got = [t.double() for t in composite_sky_fwd(alpha, feats)]
+    want = composite_sky_reference(alpha.double(), feats.double())
+    _assert_all_close(got, want, K1_TOL, "K1 fwd train_bf16")
+    rows.append({"name": "composite_sky_fwd", **k1, "replaces": "neuradar_tpu/ops/volumetric.py:100",
+                 "path": "train_bf16", "shape": [R, S1, C], "max_abs_err": _max_err(got, want),
+                 **_times(lambda: composite_sky_fwd(alpha, feats), lambda: composite_sky_reference(alpha, feats)),
+                 **_bound(4 * (R * S1 * (C + 2) + R * (C + 1)), R * S1 * (2 * C + 8))})
+    cots = (torch.randn((R, S1), generator=gen, device=device), torch.randn((R, C), generator=gen, device=device),
+            torch.randn((R, 1), generator=gen, device=device))
+    got, want = composite_sky_bwd(alpha, feats, *cots), composite_sky_bwd_reference(alpha, feats, *cots)
+    _assert_all_close(got, want, K1_BWD_TOL, "K1 bwd train_bf16")
+    rows.append({"name": "composite_sky_bwd", **k1, "replaces": "neuradar_tpu/ops/volumetric.py:125",
+                 "path": "train_bf16", "shape": [R, S1, C], "design": composite_sky_bwd_path(feats, cots[1]),
+                 "max_abs_err": _max_err(got, want),
+                 **_times(lambda: composite_sky_bwd(alpha, feats, *cots),
+                          lambda: composite_sky_bwd_reference(alpha, feats, *cots), plain_syncs=True),
+                 **_bound(4 * (2 * R * S1 * C + 3 * R * S1 + R * C + R), R * S1 * (3 * C + 12))})
+    del alpha, feats, cots, got, want
+
+    k2b = {"route": "cuda", "source": "neuradar_tpu_torch/csrc/attention_bf16.cu"}
+    bench = bench_pipeline_config("full", chunks=BF16_CHUNKS)
+    B = _group_scans(bench.model, bench.datamanager.num_radar_scans)
+    bf = torch.bfloat16
+    qb, kb, vb, dob = (torch.randn((B, S, D), generator=gen, device=device).to(bf) for _ in range(4))
+    out, lse, out32 = self_attention_fwd(qb, kb, vb, rate, seed, return_lse=True, return_out32=True)
+    _expect(out.dtype == bf and self_attention_bf16_fwd.launches > 0, "K2 bf16 fwd: not the bf16 kernel")
+    want32 = attention_reference(qb.float(), kb.float(), vb.float(), seed, rate)
+    torch.testing.assert_close(out, want32.to(bf), **K2_BF16_TOL, msg=lambda m: f"K2 bf16 fwd: {m}")
+    torch.testing.assert_close(out32, want32, **K2_OUT32_TOL, msg=lambda m: f"K2 bf16 fwd out32: {m}")
+    again = self_attention_fwd(qb, kb, vb, rate, seed, return_lse=True, return_out32=True)
+    _expect(all(torch.equal(a, b) for a, b in zip(again, (out, lse, out32))), "K2 bf16 fwd: two launches differ")
+    rows.append({"name": "self_attention_bf16_fwd", **k2b, "replaces": "neuradar_tpu/ops/attention.py:176",
+                 "path": "train_bf16", "shape": [B, S, D], "dtype": "bfloat16", "dropout": rate,
+                 "max_abs_err": float((out.float() - want32.to(bf).float()).abs().max()),
+                 "max_abs_err_out32": float((out32 - want32).abs().max()),
+                 **_times(lambda: self_attention_fwd(qb, kb, vb, rate, seed, return_lse=True, return_out32=True),
+                          lambda: attention_reference(qb, kb, vb, seed, rate),
+                          lambda: F.scaled_dot_product_attention(qb[:, None], kb[:, None], vb[:, None],
+                                                                 dropout_p=rate)),
+                 # q, k, v in bf16; out in bf16, out32 and lse in float32
+                 **_k2_bf16_bound(2 * 3 * B * S * D + 2 * B * S * D + 4 * (B * S * D + B * S), 4 * B * S * S * D,
+                                  K2_BF16_FWD_PASSES, B, S, D)})
+    got = self_attention_bwd(qb, kb, vb, out32, dob, lse, rate, seed)
+    want = attention_bwd_reference(qb, kb, vb, dob, seed, rate)
+    _assert_all_close(got, want, K2_BF16_BWD_TOL, "K2 bf16 bwd")
+    _expect(all(g.dtype == bf for g in got), "K2 bf16 bwd: not bf16 gradients")
+    _expect(all(torch.equal(a, b) for a, b in zip(self_attention_bwd(qb, kb, vb, out32, dob, lse, rate, seed), got)),
+            "K2 bf16 bwd: two launches differ")
+    qh, kh, vh = (t[:, None].clone().requires_grad_(True) for t in (qb, kb, vb))
+    lib_out = F.scaled_dot_product_attention(qh, kh, vh, dropout_p=rate)
+    rows.append({"name": "self_attention_bf16_bwd", **k2b, "replaces": "neuradar_tpu/ops/attention.py:196",
+                 "path": "train_bf16", "shape": [B, S, D], "dtype": "bfloat16", "dropout": rate,
+                 "max_abs_err": max(float((g.float() - w.float()).abs().max()) for g, w in zip(got, want)),
+                 **_times(lambda: self_attention_bwd(qb, kb, vb, out32, dob, lse, rate, seed),
+                          lambda: attention_bwd_reference(qb, kb, vb, dob, seed, rate),
+                          lambda: torch.autograd.grad(lib_out, (qh, kh, vh), dob[:, None], retain_graph=True)),
+                 # q, k, v, dO in bf16, out32 and lse in float32 read; dq, dk, dv in bf16 written
+                 **_k2_bf16_bound(2 * 4 * B * S * D + 4 * (B * S * D + B * S) + 2 * 3 * B * S * D,
+                                  10 * B * S * S * D, K2_BF16_BWD_PASSES, B, S, D)})
+    del qb, kb, vb, dob, out, lse, out32, again, got, want, qh, kh, vh, lib_out
 
     # K3 at a render chunk's shape with sample midpoints, against its plain version in float64 (as K1)
     R, S, C = 32768, 33, 32
@@ -339,11 +466,11 @@ def render_full_width(device: torch.device) -> None:
     phase("render_lidar", shapes=shapes, finite=finite, seconds=dt, num_valid=rend["num_valid"])
     _expect(finite and all(s == [16384, 1] for s in shapes.values()), f"render_lidar: {shapes}, finite={finite}")
 
-    rend, dt = _timed(lambda: pipe.render_radar([0, 1, 2, 3]))
+    rend, dt = _timed(lambda: pipe.render_radar(list(RENDER_RADAR_SCANS)))
     ro = rend["radar_output"]
     finite = _finite(ro)
     phase("render_radar", shape=list(ro.shape), finite=finite, seconds=dt)
-    _expect(finite and list(ro.shape) == [4, pipe.tables.radars.rays_per_scan, 7],
+    _expect(finite and list(ro.shape) == [len(RENDER_RADAR_SCANS), pipe.tables.radars.rays_per_scan, 7],
             f"render_radar: {list(ro.shape)}, finite={finite}")
     del pipe
     torch.cuda.empty_cache()
@@ -394,6 +521,54 @@ def train_full_width(device: torch.device) -> None:
     torch.cuda.empty_cache()
 
 
+def train_bf16(device: torch.device) -> dict:
+    """This slice's path: the JAX package's benchmark program in bf16, trained by a Trainer at the
+    full batch on the bench scene (3 steps), then an eval loss and a camera render."""
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    cfg = TrainerConfig(pipeline=bench_pipeline_config("full", chunks=BF16_CHUNKS),
+                        optimizers=default_optimizer_groups(2001),
+                        steps_per_eval_batch=0, steps_per_eval_image=0, steps_per_eval_all_images=0,
+                        steps_per_eval_all_radars=0, steps_per_save=0, save_final_checkpoint=False,
+                        output_dir="chiprun_out/train_bf16")
+    trainer = Trainer(cfg, bench_scene_outputs(), device)
+    trainer.setup()
+    layout = trainer.pipeline.layout
+    m = cfg.pipeline.model
+    torch.cuda.synchronize()
+    phase("train_bf16_setup", seconds=time.perf_counter() - t0, seed=cfg.seed, compute_dtype=m.compute_dtype,
+          hoist_table_cast=m.hoist_table_cast, nff_chunks=m.nff_chunks, radar_decode_chunks=m.radar_decode_chunks,
+          vgg_mult=m.loss.vgg_mult, rays_per_step=layout.total, camera_rays=layout.num_cam, lidar_rays=layout.num_lidar,
+          radar_scans=layout.num_radar_scans, rays_per_radar_scan=layout.rays_per_scan)
+    _expect(layout.total == 113840 and m.compute_dtype == "bfloat16",
+            f"bf16 program: {layout.total} rays, {m.compute_dtype}")
+    steps = []
+    for step in range(TRAIN_STEPS):
+        torch.cuda.reset_peak_memory_stats()
+        (losses, metrics), dt = _timed(trainer.train_step)
+        values = {k: float(v) for k, v in losses.items()}
+        finite = all(math.isfinite(v) for v in values.values())
+        steps.append({"step": step, "seconds": dt, "rays_per_s": layout.total / dt,
+                      "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30})
+        phase("train_bf16_step", **steps[-1], finite=finite, losses=values,
+              metrics={k: float(v) for k, v in metrics.items()})
+        _expect(finite, f"bf16 train step {step}: a loss term is not finite: {values}")
+    (losses, metrics), dt = _timed(trainer.eval_loss)
+    values = {k: float(v) for k, v in losses.items()}
+    _expect(all(math.isfinite(v) for v in values.values()), f"bf16 eval loss not finite: {values}")
+    rend, render_s = _timed(lambda: trainer.pipeline.render_camera(0))
+    shapes = {k: list(v.shape) for k, v in rend.items()}
+    _expect(all(_finite(v) for v in rend.values()) and shapes["rgb"] == [96, 156, 3],
+            f"bf16 render_camera: {shapes}")
+    trainer.shutdown()
+    del trainer
+    torch.cuda.empty_cache()
+    median = sorted(st["seconds"] for st in steps)[len(steps) // 2]
+    return {"steps": steps, "median_step_s": median, "rays_per_s_median": layout.total / median,
+            "peak_mem_gb": max(st["peak_mem_gb"] for st in steps),
+            "eval_loss": {"seconds": dt, "losses": values}, "render_camera": {"seconds": render_s, "shapes": shapes}}
+
+
 def _tiny_outputs():
     out = SyntheticDataParser(SyntheticDataParserConfig(
         num_frames=8, image_height=24, image_width=36, lidar_points_per_scan=256)).get_dataparser_outputs()
@@ -402,11 +577,16 @@ def _tiny_outputs():
     return out
 
 
-def _tiny_pipeline(device, nff_chunks: int = 1) -> ADNeuRadarPipeline:
+def _tiny_pipeline(device, nff_chunks: int = 1, dtype: str = "float32", vgg: bool = False) -> ADNeuRadarPipeline:
+    """The tiny scene and model, radar in 2 groups; without the VGG loss 4-ray patches (12 pixels, too
+    small for VGG-19's four pools), with it 8-ray patches (24 pixels)."""
     out = _tiny_outputs()
     cfg = ADNeuRadarPipelineConfig(datamanager=ADDataManagerConfig(
-        num_rgb_patches=2, patch_size=4, num_lidar_rays=32, num_radar_scans=2, max_radar_gt=16))
+        num_rgb_patches=2, patch_size=8 if vgg else 4, num_lidar_rays=32, num_radar_scans=2, max_radar_gt=16))
     m = cfg.model
+    m.compute_dtype = dtype
+    m.radar_decode_chunks = 2
+    m.loss.vgg_mult = 0.05 if vgg else 0.0
     m.field.grid.static.log2_hashmap_size = 12
     m.field.grid.actor.log2_hashmap_size = 10
     for pf in (m.sampling.proposal_field_1, m.sampling.proposal_field_2):
@@ -472,6 +652,95 @@ def check_tiny_train_agreement(device: torch.device) -> dict:
             "max_abs_err_grad": worst_grad, "loss_tol": TRAIN_LOSS_TOL, "grad_rtol": TRAIN_GRAD_RTOL,
             "grad_atol_floor": TRAIN_GRAD_ATOL_FLOOR, "zero_grad": ZERO_GRAD, "zero_grad_leaves": zero_grad,
             "floor_leaves": floor_grad, "total": float(c_total.detach())}
+
+
+def _pinned_radar_loss(pinned: torch.Tensor):
+    """radar_utils.calculate_radar_loss with the association solved on the cost of ``pinned``."""
+
+    def loss(gt, gt_mask, radar_output, training=True):
+        cost = radar_utils.radar_cost_matrix(gt, gt_mask, pinned.to(gt.device), "euclidean")
+        assigned = radar_utils.auction_assignment(cost, gt_mask)
+        return torch.mean(radar_utils.radar_scan_loss(gt, gt_mask, radar_output, assigned)), assigned
+
+    return loss
+
+
+# the tiny bf16 step card vs CPU, by the rule tests/test_torch_bf16_train.py holds the port to against
+# the JAX package: loss terms to rtol 1e-3; each gradient within BF16_GRAD_SHARE of the CPU's own
+# bf16-to-float32 distance, in L2 over the parameter (measured: 0.052 at most, the attention key's
+# weight); a parameter whose CPU gradient stays under BF16_ZERO_GRAD of the step's largest entry (an
+# exact gradient of 0: rounding alone) within BF16_GRAD_FLOOR of that entry (measured: 2.4e-7
+# against 2.8e-6); all gradients together within BF16_GRAD_SHARE of the bf16-to-float32 distance
+# (measured: 0.0085)
+BF16_GRAD_SHARE = 0.125
+BF16_ZERO_GRAD = 2e-4
+BF16_GRAD_FLOOR = 2e-5
+BF16_LOSS_RTOL = 1e-3
+
+
+def check_tiny_bf16_train_agreement(device: torch.device) -> dict:
+    """One tiny bf16 step (2 recomputed chunks, 2 radar groups, hoisted cast, flips, dropout and the
+    VGG loss on) through the kernels on the card against the plain versions on the CPU, and a float32
+    step on the CPU to measure what bf16 itself moves; the radar association solved on one fixed
+    cost matrix on all three, since bf16's rounding can flip a near tie of the auction."""
+    pipes = {"card": _tiny_pipeline(device, TINY_NFF_CHUNKS, "bfloat16", vgg=True),
+             "cpu": _tiny_pipeline("cpu", TINY_NFF_CHUNKS, "bfloat16", vgg=True),
+             "cpu_f32": _tiny_pipeline("cpu", TINY_NFF_CHUNKS, "float32", vgg=True)}
+    state = {k: v.cpu() for k, v in pipes["card"].model.state_dict().items()}
+    for name in ("cpu", "cpu_f32"):
+        pipes[name].model.load_state_dict(state)
+    batch = pipes["card"].datamanager.sample_train_batch()
+    layout = pipes["card"].layout
+    gen = torch.Generator().manual_seed(5)
+    pinned = torch.cat([torch.rand((layout.num_radar_scans, layout.rays_per_scan, 1), generator=gen) * 0.6 + 0.2,
+                        torch.randn((layout.num_radar_scans, layout.rays_per_scan, 3), generator=gen) * 20,
+                        torch.rand((layout.num_radar_scans, layout.rays_per_scan, 3), generator=gen) + 0.5], -1)
+    results = {}
+    original = radar_utils.calculate_radar_loss
+    radar_utils.calculate_radar_loss = _pinned_radar_loss(pinned)
+    try:
+        for name, pipe in pipes.items():
+            pipe.model.train()
+            pipe.model.zero_grad()
+            total, losses, _ = pipe.make_train_loss_fn()(batch, torch.Generator().manual_seed(7))
+            total.backward()
+            results[name] = ({"total": total.detach().cpu(), **{k: v.detach().cpu() for k, v in losses.items()}},
+                             {n: (p.grad if p.grad is not None else torch.zeros_like(p)).cpu()
+                              for n, p in pipe.model.named_parameters()})
+    finally:
+        radar_utils.calculate_radar_loss = original
+    (g_loss, g_grad), (c_loss, c_grad), (f_loss, f_grad) = results["card"], results["cpu"], results["cpu_f32"]
+    _expect("vgg_loss" in c_loss, "the VGG loss did not run")
+    worst_loss = 0.0
+    for key, c in c_loss.items():
+        torch.testing.assert_close(g_loss[key], c, rtol=BF16_LOSS_RTOL, atol=0,
+                                   msg=lambda m, key=key: f"bf16 {key}: {m}")
+        worst_loss = max(worst_loss, float((g_loss[key] - c).abs() / c.abs().clamp_min(1e-30)))
+    largest = max(float(c.abs().max()) for c in c_grad.values())
+    floor = BF16_GRAD_FLOOR * largest
+    num = dtype_num = den = 0.0
+    shares, floored = {}, {}
+    for name, c in c_grad.items():
+        g, f = g_grad[name], f_grad[name]
+        err, dtype_err = float((g - c).norm()), float((c - f).norm())
+        max_err, peak = float((g - c).abs().max()), float(c.abs().max())
+        if peak < BF16_ZERO_GRAD * largest:
+            floored[name] = max_err
+            _expect(max_err <= floor, f"bf16 grad {name}: card-CPU {max_err}, floor {floor}")
+        else:
+            shares[name] = err / dtype_err
+            _expect(err <= BF16_GRAD_SHARE * dtype_err, f"bf16 grad {name}: card-CPU {err}, bf16-float32 {dtype_err}")
+        num += err**2
+        dtype_num += dtype_err**2
+        den += float(c.pow(2).sum())
+    _expect(num**0.5 < BF16_GRAD_SHARE * dtype_num**0.5,
+            f"bf16 grads: card-CPU {num**0.5}, bf16-float32 {dtype_num**0.5}")
+    top = sorted(shares.items(), key=lambda kv: -kv[1])[:3]
+    return {"nff_chunks": TINY_NFF_CHUNKS, "radar_groups": 2, "loss_terms": len(c_loss) - 1,
+            "max_rel_err_loss": worst_loss, "loss_rtol": BF16_LOSS_RTOL,
+            "grad_rel_l2_card_cpu": (num / den) ** 0.5, "grad_rel_l2_bf16_f32": (dtype_num / den) ** 0.5,
+            "grad_share": BF16_GRAD_SHARE, "worst_grad_shares": dict(top),
+            "grad_floor": floor, "worst_floored": max(floored.values(), default=0.0), "total": float(c_loss["total"])}
 
 
 CLI_RUNS = Path("chiprun_out/runs")
@@ -555,21 +824,25 @@ def _quarters(points: list) -> dict:
 
 
 def learning() -> dict:
-    """The tiny learning check on the card, 300 steps, and the JAX package's CPU curve beside it."""
-    out_dir = Path("chiprun_out/learning")
-    shutil.rmtree(out_dir, ignore_errors=True)
-    t0 = time.perf_counter()
-    rc = validate_learning.main(["--scale", "tiny", "--iters", "300", "--eval-every", "50", "--device", "cuda",
-                                 "--output-dir", str(out_dir)])
-    seconds = time.perf_counter() - t0
-    _expect(rc == 0, "learning: LEARNING CHECK did not PASS")
-    (report_path,) = out_dir.glob("*/neuradar/learning_check.json")
-    report = json.loads(report_path.read_text())
+    """The tiny learning check on the card, 300 steps, at bf16 (the JAX curve's dtype, the default)
+    and at float32, and the JAX package's CPU curve beside them."""
     jax_curves = json.loads(JAX_CURVE.read_text())["curves"]
     jax = {k: _quarters([p for p in jax_curves[k] if p[0] < 300]) for k in ("loss", "psnr", "depth_loss", "radar_loss")}
-    return {"seconds": seconds, "port": {k: report[k] for k in jax}, "jax_cpu_bf16_first_300": jax,
-            "curve_keys": report.get("curve_keys"),
-            "jax_curve_keys_missing": sorted(set(jax_curves) - set(report.get("curve_keys", [])))}
+    result = {"jax_cpu_bf16_first_300": jax}
+    for dtype, flag in (("bfloat16", "--bf16"), ("float32", "--no-bf16")):
+        out_dir = Path("chiprun_out/learning") / dtype
+        shutil.rmtree(out_dir, ignore_errors=True)
+        t0 = time.perf_counter()
+        rc = validate_learning.main(["--scale", "tiny", "--iters", "300", "--eval-every", "50", "--device", "cuda",
+                                     "--output-dir", str(out_dir), flag])
+        seconds = time.perf_counter() - t0
+        _expect(rc == 0, f"learning {dtype}: LEARNING CHECK did not PASS")
+        (report_path,) = out_dir.glob("*/neuradar/learning_check.json")
+        report = json.loads(report_path.read_text())
+        result[dtype] = {"seconds": seconds, "port": {k: report[k] for k in jax},
+                         "curve_keys": report.get("curve_keys"),
+                         "jax_curve_keys_missing": sorted(set(jax_curves) - set(report.get("curve_keys", [])))}
+    return result
 
 
 def main() -> int:
@@ -597,7 +870,7 @@ def main() -> int:
         phase("kernel", **row)
 
     render_kernels = (composite_sky_fwd, self_attention_fwd)
-    for k in PATH_KERNELS:
+    for k in COUNTED_KERNELS:
         k.launches = 0
     t0 = time.perf_counter()
     render_full_width(device)
@@ -607,7 +880,7 @@ def main() -> int:
     _expect(all(render_launches[k.__name__] > 0 for k in render_kernels),
             f"a kernel of the render path never launched: {render_launches}")
 
-    for k in PATH_KERNELS:
+    for k in COUNTED_KERNELS:
         k.launches = 0
     t0 = time.perf_counter()
     train_full_width(device)
@@ -615,10 +888,22 @@ def main() -> int:
     phase("train", seconds=time.perf_counter() - t0, launches=launches)
     _expect(all(n > 0 for n in launches.values()), f"a kernel of the train path never launched: {launches}")
 
+    for k in COUNTED_KERNELS:
+        k.launches = 0
+    t0 = time.perf_counter()
+    report = train_bf16(device)
+    bf16_launches = {k.__name__: k.launches for k in BF16_PATH_KERNELS}
+    phase("train_bf16", seconds=time.perf_counter() - t0, launches=bf16_launches, **report)
+    _expect(all(n > 0 for n in bf16_launches.values()),
+            f"a kernel of the bf16 train path never launched: {bf16_launches}")
+    _expect(self_attention_fwd.launches == 0 and self_attention_bwd.launches == 0,
+            "the bf16 train path launched the float32 K2")
+
     phase("agreement", max_abs_err=check_tiny_agreement(device), **TINY_TOL)
     phase("train_agreement", **check_tiny_train_agreement(device))
+    phase("train_bf16_agreement", **check_tiny_bf16_train_agreement(device))
 
-    for k in PATH_KERNELS:
+    for k in COUNTED_KERNELS:
         k.launches = 0
     report = cli_train()
     cli_launches = {k.__name__: k.launches for k in PATH_KERNELS}
@@ -627,9 +912,10 @@ def main() -> int:
 
     phase("learning", **learning())
 
+    path_launches = {"render": render_launches, "train": launches, "train_bf16": bf16_launches}
     for row in rows:
         if row["path"] != "standalone":
-            row["launches"] = (render_launches if row["path"] == "render" else launches)[row["name"]]
+            row["launches"] = path_launches[row["path"]][row["name"]]
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

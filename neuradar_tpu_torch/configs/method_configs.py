@@ -1,6 +1,6 @@
 """Method presets of the port (the JAX package's configs/method_configs.py).
 Only ``neuradar-synthetic`` is ported: the data-free preset, float32, with the
-VGG loss and the camera optimizer off."""
+VGG loss and the camera optimizer off, as in the JAX package."""
 
 from __future__ import annotations
 
@@ -14,7 +14,7 @@ from neuradar_tpu_torch.pipelines.ad_neuradar_pipeline import ADNeuRadarPipeline
 
 
 def _neuradar_synthetic() -> TrainerConfig:
-    return TrainerConfig(
+    cfg = TrainerConfig(
         method_name="neuradar-synthetic",
         steps_per_eval_batch=500,
         steps_per_eval_image=0,
@@ -26,6 +26,8 @@ def _neuradar_synthetic() -> TrainerConfig:
         optimizers=default_optimizer_groups(2001),
         dataparser=SyntheticDataParserConfig(),
     )
+    cfg.pipeline.model.loss.vgg_mult = 0.0
+    return cfg
 
 
 method_configs: Dict[str, Callable[[], TrainerConfig]] = {"neuradar-synthetic": _neuradar_synthetic}

@@ -10,12 +10,21 @@ it has no kernel in this port yet.
 The hash matches the JAX package bit for bit: there the products are uint32
 with wraparound; here they are int64, and masking with table_size - 1 keeps
 only the low log2(table_size) bits, which are the same in both.
+
+``compute_dtype`` (bfloat16) casts the table and the positions, as the JAX
+package does: the level scalings take the positions' dtype, so the corner
+indices and weights come from bf16 positions, each corner's weighted feature
+is rounded to bf16, the 8 (16) corner terms are summed in float32 and the
+sum rounded once (as XLA reduces them), and the output returns to the
+positions' dtype. ``cast_hash_tables`` casts every table of a module tree
+once (the hoisted cast); an encoder handed its cast table gathers from it,
+and its own cast is then a no-op.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Sequence
+from typing import Dict, Optional, Sequence
 
 import numpy as np
 import torch
@@ -49,9 +58,9 @@ def hash_encode(positions: torch.Tensor, table_flat: torch.Tensor, scalings: Seq
         for i, bit in enumerate(bits):
             wi = offset[..., i] if bit else 1 - offset[..., i]
             w = wi if w is None else w * wi
-        term = table[idx] * w[..., None]  # [N, L, F]
+        term = (table[idx] * w[..., None]).float()  # [N, L, F]
         out = term if out is None else out + term
-    return out.reshape(N, L * F)
+    return out.to(table_flat.dtype).reshape(N, L * F)
 
 
 def grid_scalings(num_levels: int, min_res: int, max_res: int) -> tuple:
@@ -62,13 +71,24 @@ def grid_scalings(num_levels: int, min_res: int, max_res: int) -> tuple:
     return tuple(np.floor(np.float32(min_res) * np.power(np.float32(growth), levels)).astype(np.float32).tolist())
 
 
+def cast_hash_tables(module: nn.Module, dtype: torch.dtype) -> Dict[nn.Module, torch.Tensor]:
+    """Every ``HashEncoding`` of ``module``'s tree -> its table cast to ``dtype``, made once (e.g.
+    once a training step, outside the recomputed chunks). Pass the mapping down to the encoders
+    (``tables=``); the parameters themselves are left as they are. The cast is differentiable:
+    the gradients of every use of a cast table add up in ``dtype`` and reach the float32 table
+    once."""
+    return {m: m.hash_table.to(dtype) for m in module.modules() if isinstance(m, HashEncoding)}
+
+
 class HashEncoding(nn.Module):
     """Multiresolution hash grid (Instant-NGP) over 3-D or 4-D inputs; the
     table is one flat parameter [L * T * F] as in the JAX package."""
 
     def __init__(self, num_levels: int = 16, min_res: int = 16, max_res: int = 1024, log2_hashmap_size: int = 19,
-                 features_per_level: int = 2, hash_init_scale: float = 0.001, n_input_dims: int = 3):
+                 features_per_level: int = 2, hash_init_scale: float = 0.001, n_input_dims: int = 3,
+                 compute_dtype: Optional[torch.dtype] = None):
         super().__init__()
+        self.compute_dtype = compute_dtype
         self.num_levels = num_levels
         self.features_per_level = features_per_level
         self.n_input_dims = n_input_dims
@@ -81,15 +101,21 @@ class HashEncoding(nn.Module):
     def get_out_dim(self) -> int:
         return self.num_levels * self.features_per_level
 
-    def forward(self, positions: torch.Tensor) -> torch.Tensor:
-        """[..., d] in [0, 1] -> [..., L * F]."""
+    def forward(self, positions: torch.Tensor, tables: Optional[Dict[nn.Module, torch.Tensor]] = None) -> torch.Tensor:
+        """[..., d] in [0, 1] -> [..., L * F] in the positions' dtype; ``tables`` may hold this
+        encoder's table, cast once by ``cast_hash_tables``."""
         if positions.shape[-1] != self.n_input_dims:
             raise ValueError(f"expected {self.n_input_dims}-D input, got {tuple(positions.shape)}")
         batch_shape = positions.shape[:-1]
+        table = tables.get(self, self.hash_table) if tables else self.hash_table
+        pos_dtype = positions.dtype
+        if self.compute_dtype is not None:
+            table = table.to(self.compute_dtype)
+            positions = positions.to(self.compute_dtype)
         with record_function("hash_encode"):
-            out = hash_encode(positions.reshape(-1, self.n_input_dims), self.hash_table, self.scalings,
+            out = hash_encode(positions.reshape(-1, self.n_input_dims), table, self.scalings,
                               self.table_size, self.num_levels, self.features_per_level)
-        return out.reshape(*batch_shape, self.get_out_dim())
+        return out.reshape(*batch_shape, self.get_out_dim()).to(pos_dtype)
 
 
 class SHEncoding(nn.Module):

@@ -4,13 +4,15 @@
 A sample inside an actor's padded box reads the actor grid at its box-frame
 position, with the normalized actor index as the 4th coordinate; every other
 sample reads the static grid. Grid features are down-weighted where the cell
-is smaller than the sample blob.
+is smaller than the sample blob. ``compute_dtype`` goes to both hash grids
+(the JAX package's counterpart, ``neurad_encoding.py:104-130``), and
+``tables`` (``encodings.cast_hash_tables``) hands them tables cast once.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Optional, Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -66,7 +68,8 @@ def _rescale_grid_features(grid_feats: torch.Tensor, std: torch.Tensor, scalings
 
 
 class NeuRADHashEncoding(nn.Module):
-    def __init__(self, config: NeuRADHashEncodingConfig, static_scale: float, n_actors: int):
+    def __init__(self, config: NeuRADHashEncodingConfig, static_scale: float, n_actors: int,
+                 compute_dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.config = config
         self.n_actors = n_actors
@@ -75,12 +78,13 @@ class NeuRADHashEncoding(nn.Module):
         s, a = config.static, config.actor
         self.static_grid = HashEncoding(
             num_levels=s.num_levels, min_res=s.base_res, max_res=s.max_res, log2_hashmap_size=s.log2_hashmap_size,
-            features_per_level=s.hashgrid_dim, n_input_dims=3,
+            features_per_level=s.hashgrid_dim, n_input_dims=3, compute_dtype=compute_dtype,
         )
         if self.has_actors:
             self.actor_grid = HashEncoding(
                 num_levels=a.num_levels, min_res=a.base_res, max_res=a.max_res,
                 log2_hashmap_size=a.log2_hashmap_size, features_per_level=a.hashgrid_dim, n_input_dims=4,
+                compute_dtype=compute_dtype,
             )
 
     @property
@@ -91,14 +95,15 @@ class NeuRADHashEncoding(nn.Module):
         return self.config.static.num_levels * self.config.static.hashgrid_dim
 
     def forward(self, gaussians: GaussiansStd, candidates: Optional[ActorCandidates],
-                directions: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+                directions: Optional[torch.Tensor] = None,
+                tables: Optional[Dict[nn.Module, torch.Tensor]] = None) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
         """gaussians: mean [R, S, 3], std [R, S, 1]; directions [R, S, 3] or None.
         Returns features [R, S, L*F] and the directions (box frame for actor samples)."""
         cfg = self.config
         mean, std = gaussians.mean, gaussians.std
         static_pos = self.static_contraction(GaussiansStd(mean=mean, std=std))
         static_feats = _rescale_grid_features(
-            self.static_grid(static_pos.mean), static_pos.std,
+            self.static_grid(static_pos.mean, tables), static_pos.std,
             self.static_grid.scalings, cfg.static.num_levels, cfg.static.hashgrid_dim,
         )
         if not self.has_actors or candidates is None:
@@ -120,7 +125,7 @@ class NeuRADHashEncoding(nn.Module):
         actor_pos = self.actor_contraction(GaussiansStd(mean=pos_box, std=std))
         id4 = (actor_id.to(pos_box.dtype) / self.n_actors)[..., None]
         actor_feats = _rescale_grid_features(
-            self.actor_grid(torch.cat([actor_pos.mean, id4], dim=-1)), actor_pos.std,
+            self.actor_grid(torch.cat([actor_pos.mean, id4], dim=-1), tables), actor_pos.std,
             self.actor_grid.scalings, cfg.actor.num_levels, cfg.actor.hashgrid_dim,
         )
         pad = self.get_out_dim() - actor_feats.shape[-1]

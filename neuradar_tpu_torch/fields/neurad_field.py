@@ -4,7 +4,10 @@ package's fields/neurad_field.py, forward only).
 hash grid -> geometry MLP (1 + D outputs) -> SH direction encoding + residual
 feature MLP; the SDF becomes alpha through a learnable-steepness sigmoid
 (the SDF configuration is the only one ported). ``trunc_exp`` is exp with
-the JAX package's clamped gradient.
+the JAX package's clamped gradient. ``compute_dtype`` reaches the hash grids
+and the MLPs (the JAX package's ``neurad_field.py:116-135,208-224``); the
+field's outputs keep the float32 of its inputs. ``tables`` hands the grids
+their tables cast once (``encodings.cast_hash_tables``).
 """
 
 from __future__ import annotations
@@ -86,23 +89,26 @@ class NeuRADProposalFieldConfig:
 class NeuRADField(nn.Module):
     """Main neural feature field (one isotropic multisample per frustum)."""
 
-    def __init__(self, config: NeuRADFieldConfig, static_scale: float, n_actors: int):
+    def __init__(self, config: NeuRADFieldConfig, static_scale: float, n_actors: int,
+                 compute_dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.config = config
-        self.hashgrid = NeuRADHashEncoding(config.grid, static_scale, n_actors)
+        self.hashgrid = NeuRADHashEncoding(config.grid, static_scale, n_actors, compute_dtype)
         grid_dim = self.hashgrid.get_out_dim()
-        self.mlp_geo = MLP(grid_dim, config.nff_out_dim + 1, config.geo_num_layers, config.geo_hidden_dim)
+        self.mlp_geo = MLP(grid_dim, config.nff_out_dim + 1, config.geo_num_layers, config.geo_hidden_dim,
+                           compute_dtype=compute_dtype)
         self.direction_encoding = SHEncoding(levels=4)
         self.mlp_feature = MLP(config.nff_out_dim + self.direction_encoding.get_out_dim(), config.nff_out_dim,
-                               config.nff_num_layers, config.nff_hidden_dim)
+                               config.nff_num_layers, config.nff_hidden_dim, compute_dtype=compute_dtype)
         self.sdf_to_density = SigmoidDensity(init_beta=config.sdf_beta)
 
-    def forward(self, ray_samples: RaySamples, candidates: Optional[ActorCandidates]) -> Dict[str, torch.Tensor]:
+    def forward(self, ray_samples: RaySamples, candidates: Optional[ActorCandidates],
+                tables: Optional[Dict[nn.Module, torch.Tensor]] = None) -> Dict[str, torch.Tensor]:
         """[R, S] samples -> 'feature' [R, S, D], 'sdf' and 'alpha' [R, S, 1]."""
         gaussians = ray_samples.frustums.get_fast_isotropic_gaussian(1)
         g = GaussiansStd(mean=gaussians.mean[..., 0, :], std=gaussians.std[..., 0, :])
         dirs = ray_samples.frustums.directions[:, None, :].expand(g.mean.shape)
-        features, dirs = self.hashgrid(g, candidates, dirs)
+        features, dirs = self.hashgrid(g, candidates, dirs, tables)
 
         geo = self.mlp_geo(features)
         geo_out, geo_embed = geo[..., :1], geo[..., 1:]
@@ -114,14 +120,17 @@ class NeuRADField(nn.Module):
 class NeuRADProposalField(nn.Module):
     """Density-only proposal field: hash grid -> 2-layer MLP -> exp."""
 
-    def __init__(self, config: NeuRADProposalFieldConfig, static_scale: float, n_actors: int):
+    def __init__(self, config: NeuRADProposalFieldConfig, static_scale: float, n_actors: int,
+                 compute_dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.config = config
-        self.hashgrid = NeuRADHashEncoding(config.grid, static_scale, n_actors)
-        self.density_decoder = MLP(self.hashgrid.get_out_dim(), 1, num_layers=2, layer_width=config.hidden_dim)
+        self.hashgrid = NeuRADHashEncoding(config.grid, static_scale, n_actors, compute_dtype)
+        self.density_decoder = MLP(self.hashgrid.get_out_dim(), 1, num_layers=2, layer_width=config.hidden_dim,
+                                   compute_dtype=compute_dtype)
 
-    def forward(self, ray_samples: RaySamples, candidates: Optional[ActorCandidates]) -> torch.Tensor:
+    def forward(self, ray_samples: RaySamples, candidates: Optional[ActorCandidates],
+                tables: Optional[Dict[nn.Module, torch.Tensor]] = None) -> torch.Tensor:
         gaussians = ray_samples.frustums.get_fast_isotropic_gaussian(1)
         g = GaussiansStd(mean=gaussians.mean[..., 0, :], std=gaussians.std[..., 0, :])
-        features, _ = self.hashgrid(g, candidates, None)
+        features, _ = self.hashgrid(g, candidates, None, tables)
         return trunc_exp(self.density_decoder(features))  # [R, S, 1]

@@ -1,6 +1,6 @@
-"""VGG-19 feature trunk (port of the JAX package's model_components/vgg.py:
-``Vgg19Features`` and ``has_pretrained_weights``; the perceptual loss waits,
-since ``vgg_mult`` is 0 in the port's preset).
+"""VGG-19 feature trunk and the pix2pixHD perceptual loss (port of the JAX
+package's model_components/vgg.py: ``Vgg19Features``, ``VGGPerceptualLossPix2Pix``
+and ``has_pretrained_weights``).
 
 The filters come from the .npz that $NEURADAR_VGG19_WEIGHTS points to (keys
 conv{i}_kernel [kh, kw, cin, cout] and conv{i}_bias, as in the JAX package)
@@ -13,7 +13,7 @@ from __future__ import annotations
 
 import math
 import os
-from typing import List, Optional
+from typing import List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -69,9 +69,11 @@ class Vgg19Features(nn.Module):
             if loaded is not None:
                 conv.weight.copy_(torch.as_tensor(loaded[f"{name}_kernel"]).permute(3, 2, 0, 1))  # HWIO -> OIHW
                 conv.bias.copy_(torch.as_tensor(loaded[f"{name}_bias"]))
-            else:  # flax's he_normal: truncated normal, variance 2 / fan_in
+            else:  # flax's he_normal: truncated normal, variance 2 / fan_in, drawn on the CPU
                 std = math.sqrt(2.0 / conv.weight[0].numel()) / _TRUNC_STD
-                nn.init.trunc_normal_(conv.weight, std=std, a=-2.0 * std, b=2.0 * std, generator=gen)
+                w = torch.empty(conv.weight.shape, device="cpu")  # also under a `with torch.device(...)`
+                nn.init.trunc_normal_(w, std=std, a=-2.0 * std, b=2.0 * std, generator=gen)
+                conv.weight.copy_(w)
                 nn.init.zeros_(conv.bias)
 
     def forward(self, images: torch.Tensor) -> List[torch.Tensor]:
@@ -86,3 +88,23 @@ class Vgg19Features(nn.Module):
                 outs.append(x)
             i += 1
         return outs
+
+
+class VGGPerceptualLossPix2Pix(nn.Module):
+    """Weighted L1 between the five feature maps of the prediction and of the (detached) target,
+    weights 1/32, 1/16, 1/8, 1/4, 1. Gradients reach the prediction; the filters sit in the
+    optimizer's "frozen" group (their path holds "vgg_loss"), as in the JAX package."""
+
+    def __init__(self, weights: Sequence[float] = (1.0 / 32, 1.0 / 16, 1.0 / 8, 1.0 / 4, 1.0), seed: int = 0):
+        super().__init__()
+        self.weights = tuple(weights)
+        self.vgg19 = Vgg19Features(seed)
+
+    def forward(self, pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+        """pred, target: [B, H, W, 3] in [0, 1] -> the scalar loss."""
+        feats = self.vgg19(torch.cat([pred, target.detach()], dim=0))
+        loss = pred.new_zeros(())
+        for w, f in zip(self.weights, feats):
+            fx, fy = torch.chunk(f, 2, dim=0)
+            loss = loss + w * torch.mean(torch.abs(fx - fy.detach()))
+        return loss

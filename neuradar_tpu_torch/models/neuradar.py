@@ -10,8 +10,19 @@ attention is kernel K2) -> the loss terms. Training draws its randomness
 per-ray core runs in ``nff_chunks`` chunks; in training each chunk is
 recomputed in the backward pass (``torch.utils.checkpoint``, the counterpart
 of the JAX package's nff_remat), so only one chunk's activations live at a
-time. The camera optimizer (mode "off" in the port's presets) and the VGG
-loss are not ported.
+time. The radar scans are decoded in ``radar_decode_chunks`` groups, each
+recomputed in the backward pass when training; the dropout draws are made
+for all scans first, so the grouping changes no result.
+
+``compute_dtype`` "bfloat16" runs the hash grids, the field MLPs and the
+radar transformer in bf16 (K2 at bf16); compositing (K1), the decoders' heads
+and the losses stay float32, as in the JAX package. With
+``hoist_table_cast`` the pipeline casts the hash tables once per request
+(``cast_tables``) and hands them down through every chunk: autograd then
+adds the chunks' table gradients in bf16 and casts the sum to float32 once,
+as the JAX package's hoisted cast does. The VGG perceptual loss
+(``loss.vgg_mult``) is ported; the camera optimizer (mode "off" in the
+port's presets) and ``nff_remat_policy`` are not.
 """
 
 from __future__ import annotations
@@ -26,6 +37,7 @@ from torch.profiler import record_function
 from torch.utils.checkpoint import checkpoint
 
 from neuradar_tpu_torch.cameras.rays import RayBundle, RaySamples
+from neuradar_tpu_torch.field_components.encodings import cast_hash_tables
 from neuradar_tpu_torch.field_components.mlp import MLP
 from neuradar_tpu_torch.fields.neurad_field import (
     NeuRADField,
@@ -51,6 +63,7 @@ from neuradar_tpu_torch.model_components.losses import (
 from neuradar_tpu_torch.model_components.radar_decoder import RadarDecoder, spherical_to_cartesian
 from neuradar_tpu_torch.model_components.ray_samplers import draw_jitter, power_sampler, proposal_network_sampler
 from neuradar_tpu_torch.model_components.renderers import render_depth_simple
+from neuradar_tpu_torch.model_components.vgg import VGGPerceptualLossPix2Pix
 from neuradar_tpu_torch.ops.volumetric import composite_sky
 
 EPS = 1e-7
@@ -58,6 +71,7 @@ EPS = 1e-7
 
 @dataclass
 class LossSettings:
+    vgg_mult: float = 0.05
     rgb_mult: float = 5.0
     depth_mult: float = 0.01
     intensity_mult: float = 0.1
@@ -97,14 +111,32 @@ class NeuRadarModelConfig:
     rgb_hidden_dim: int = 32
     existence_probability_threshold: float = 0.5  # radar components kept by the deterministic sampler
     eval_num_rays_per_chunk: int = 1 << 15
+    compute_dtype: str = "float32"
+    """With "bfloat16" the hash grids (tables and positions), the field MLPs and the radar
+    transformer compute in bf16 with float32 parameters."""
     nff_chunks: int = 1
     """Sequential ray chunks of the per-ray core; must divide the bundle (else one chunk). In
     training each chunk is recomputed in the backward pass instead of keeping its activations."""
+    radar_decode_chunks: int = 4
+    """Radar scans are decoded in this many groups (the largest count up to it that divides the
+    scans), each recomputed in the backward pass when training."""
+    hoist_table_cast: bool = True
+    """Under a compute_dtype other than float32: cast the hash tables once per request (the
+    pipeline calls ``cast_tables``) instead of inside every chunk."""
     radar_transformer_dropout: float = 0.1
 
     @property
     def num_proposal_rounds(self) -> int:
         return len(self.sampling.num_proposal_samples)
+
+
+def radar_decode_groups(num_scans: int, radar_decode_chunks: int) -> int:
+    """The number of groups ``num_scans`` radar scans are decoded in: the largest count up to
+    ``radar_decode_chunks`` that divides the scans."""
+    n_groups = max(1, min(radar_decode_chunks, num_scans))
+    while num_scans % n_groups:
+        n_groups -= 1
+    return n_groups
 
 
 @dataclass(frozen=True)
@@ -144,9 +176,17 @@ class SceneMeta:
     num_sensors: int = 1
 
 
+def compute_dtype(name: str) -> Optional[torch.dtype]:
+    """The modules' compute dtype for a config's name: None for float32 (no cast anywhere)."""
+    if name not in ("float32", "bfloat16"):
+        raise ValueError(f"compute_dtype {name!r}: the port runs float32 or bfloat16")
+    return None if name == "float32" else torch.bfloat16
+
+
 class NeuRadarModel(nn.Module):
-    """The joint model in float32 (the neuradar-synthetic preset; both kernels
-    take float32); submodule names follow the flax parameter tree."""
+    """The joint model, float32 parameters, computing in ``config.compute_dtype``; submodule
+    names follow the flax parameter tree (``vgg_loss`` exists when ``loss.vgg_mult`` > 0, as the
+    flax module's parameters do)."""
 
     def __init__(self, config: NeuRadarModelConfig, scene: SceneMeta, trajectories: ActorTrajectories):
         super().__init__()
@@ -154,10 +194,11 @@ class NeuRadarModel(nn.Module):
         self.scene = scene
         n_actors = trajectories.n_actors
         self.n_actors = n_actors
+        cdt = compute_dtype(config.compute_dtype)
         self.dynamic_actors = DynamicActors(trajectories, config.dynamic_actors)
-        self.field = NeuRADField(config.field, scene.static_scale, n_actors)
-        self.proposal_field_0 = NeuRADProposalField(config.sampling.proposal_field_1, scene.static_scale, n_actors)
-        self.proposal_field_1 = NeuRADProposalField(config.sampling.proposal_field_2, scene.static_scale, n_actors)
+        self.field = NeuRADField(config.field, scene.static_scale, n_actors, cdt)
+        self.proposal_field_0 = NeuRADProposalField(config.sampling.proposal_field_1, scene.static_scale, n_actors, cdt)
+        self.proposal_field_1 = NeuRADProposalField(config.sampling.proposal_field_2, scene.static_scale, n_actors, cdt)
 
         self.embeds_per_sensor = max(1, int(-(-scene.duration * config.temporal_appearance_freq // 1)))
         self.appearance_embedding = nn.Embedding(scene.num_sensors * self.embeds_per_sensor, config.appearance_dim)
@@ -165,19 +206,31 @@ class NeuRadarModel(nn.Module):
         n_features = config.field.nff_out_dim + config.appearance_dim
         self.rgb_decoder = RGBDecoder(n_features, config.rgb_hidden_dim, config.rgb_upsample_factor)
         self.lidar_decoder = MLP(n_features, 2, num_layers=3, layer_width=32)
-        self.radar_decoder = RadarDecoder(d_model=n_features, dropout=config.radar_transformer_dropout)
+        self.radar_decoder = RadarDecoder(d_model=n_features, dropout=config.radar_transformer_dropout, dtype=cdt)
+        if config.loss.vgg_mult > 0.0:
+            self.vgg_loss = VGGPerceptualLossPix2Pix()
 
     @property
     def proposal_fields(self):
         return (self.proposal_field_0, self.proposal_field_1)
 
+    def cast_tables(self) -> Optional[Dict[nn.Module, torch.Tensor]]:
+        """The hoisted table cast (``encodings.cast_hash_tables``) when the config asks for it, else
+        None: make it once per request and pass it as ``tables`` to the entry points below."""
+        cdt = compute_dtype(self.config.compute_dtype)
+        if cdt is None or not self.config.hoist_table_cast:
+            return None
+        return cast_hash_tables(self, cdt)
+
     def get_outputs(self, ray_bundle: RayBundle, layout: SegmentLayout, train: bool = False,
-                    generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
+                    generator: Optional[torch.Generator] = None,
+                    tables: Optional[Dict[nn.Module, torch.Tensor]] = None) -> Dict[str, torch.Tensor]:
         """Decoded outputs of a merged bundle. ``train`` needs a generator: it jitters the
-        samples, flips actors, applies dropout and puts the RGB CNN's batch norm in training."""
+        samples, flips actors, applies dropout and puts the RGB CNN's batch norm in training.
+        ``tables``: the hash tables cast once (``cast_tables``)."""
         if train and generator is None:
             raise ValueError("training draws its randomness from a generator")
-        outputs = self.get_nff_outputs(ray_bundle, layout, train, generator)
+        outputs = self.get_nff_outputs(ray_bundle, layout, train, generator, tables)
         features = outputs.pop("features")
 
         cam_feats = layout.cam(features)
@@ -199,12 +252,30 @@ class NeuRadarModel(nn.Module):
             depth = layout.radar(outputs["depth"]).reshape(ns, nr, 1)
             spher = layout.radar(ray_bundle.metadata["directions_spher"]).reshape(ns, nr, 2)
             geometry = spherical_to_cartesian(depth, spher[..., 1:2], spher[..., 0:1])
-            # all scans in one batch: attention never crosses scans
             with record_function("radar_decoder"):
-                outputs["radar_output"], outputs["radar_angles"] = self.radar_decoder(
-                    radar_feats.reshape(ns, nr, radar_feats.shape[-1]), geometry, generator if train else None
-                )
+                outputs["radar_output"], outputs["radar_angles"] = self._decode_radar(
+                    radar_feats.reshape(ns, nr, radar_feats.shape[-1]), geometry, generator if train else None)
         return outputs
+
+    def _decode_radar(self, feats: torch.Tensor, geometry: torch.Tensor, generator: Optional[torch.Generator]):
+        """The radar decoder over [ns, nr] tokens in ``radar_decode_chunks`` groups of scans
+        (attention never crosses scans); with gradients each group is recomputed in the backward
+        pass. The training draws are made for all scans first and sliced per group."""
+        ns, nr = feats.shape[:2]
+        decoder = self.radar_decoder
+        noise = decoder.draw_noise(ns, nr, generator, feats.device) if generator is not None else None
+        n_groups = radar_decode_groups(ns, self.config.radar_decode_chunks)
+        if n_groups == 1:
+            return decoder.decode(feats, geometry, noise)
+        g = ns // n_groups
+        outs = []
+        for i in range(0, ns, g):
+            args = (feats[i:i + g], geometry[i:i + g], decoder.slice_noise(noise, i, i + g) if noise else None)
+            if torch.is_grad_enabled():
+                outs.append(checkpoint(decoder.decode, *args, use_reentrant=False, preserve_rng_state=False))
+            else:
+                outs.append(decoder.decode(*args))
+        return torch.cat([o[0] for o in outs]), torch.cat([o[1] for o in outs])
 
     def decode_camera_features(self, features: torch.Tensor, patch_size: Tuple[int, int]) -> torch.Tensor:
         """Rendered features [h*w, C] -> rgb [1, h*u, w*u, 3] through the upsampling CNN."""
@@ -213,10 +284,11 @@ class NeuRadarModel(nn.Module):
         return self.rgb_decoder(features.reshape(-1, ph, pw, features.shape[-1]))
 
     def get_nff_outputs(self, ray_bundle: RayBundle, layout: SegmentLayout, train: bool = False,
-                        generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
+                        generator: Optional[torch.Generator] = None,
+                        tables: Optional[Dict[nn.Module, torch.Tensor]] = None) -> Dict[str, torch.Tensor]:
         """Neural-feature-field forward: features [R, C + A], depth [R, 1], accumulation [R, 1];
         in training also the per-round weights and bin edges the losses need, and the lidar
-        carving sums."""
+        carving sums. ``tables`` (``cast_tables``) enter every chunk as they are."""
         cfg = self.config
         ray_bundle = self._scale_pixel_area(ray_bundle, layout)
         sky = cfg.sampling.sky_distance
@@ -249,13 +321,13 @@ class NeuRadarModel(nn.Module):
 
         n_chunks = cfg.nff_chunks if cfg.nff_chunks > 1 and R % cfg.nff_chunks == 0 else 1
         if n_chunks == 1:
-            return self._nff_core(ray_bundle, candidates, jitter, train)
+            return self._nff_core(ray_bundle, candidates, jitter, train, tables)
         size = R // n_chunks
         outs = []
         for c in range(n_chunks):
             sl = slice(c * size, (c + 1) * size)
             args = (_slice_bundle(ray_bundle, sl), candidates.chunk(sl) if candidates is not None else None,
-                    [j[sl] for j in jitter] if jitter is not None else None, train)
+                    [j[sl] for j in jitter] if jitter is not None else None, train, tables)
             if train and torch.is_grad_enabled():
                 outs.append(checkpoint(self._nff_core, *args, use_reentrant=False, preserve_rng_state=False))
             else:
@@ -265,11 +337,12 @@ class NeuRadarModel(nn.Module):
                 for k in outs[0]}
 
     def _nff_core(self, ray_bundle: RayBundle, candidates: Optional[ActorCandidates],
-                  jitter: Optional[List[torch.Tensor]] = None, train: bool = False) -> Dict[str, torch.Tensor]:
+                  jitter: Optional[List[torch.Tensor]] = None, train: bool = False,
+                  tables: Optional[Dict[nn.Module, torch.Tensor]] = None) -> Dict[str, torch.Tensor]:
         """Per-ray core: sampling -> fields -> K1 compositing -> depth; chunk-shape agnostic."""
         cfg = self.config
         # round i is weighted by proposal field i
-        density_fns = [(lambda rs, f=f: f(rs, candidates)) for f in self.proposal_fields]
+        density_fns = [(lambda rs, f=f: f(rs, candidates, tables)) for f in self.proposal_fields]
         with record_function("proposal_sampling"):
             ray_samples, weights_list, samples_list = proposal_network_sampler(
                 ray_bundle,
@@ -283,7 +356,7 @@ class NeuRadarModel(nn.Module):
         ray_samples = _apply_sky_sample(ray_samples, cfg.sampling.sky_distance)
 
         with record_function("field"):
-            field_out = self.field(ray_samples, candidates)
+            field_out = self.field(ray_samples, candidates, tables)
         # K1: weights, sky redistribution and feature render in one pass (and its backward)
         with record_function("composite_sky"):
             weights_sky, features, accumulation = composite_sky(field_out["alpha"][..., 0], field_out["feature"])
@@ -324,11 +397,12 @@ class NeuRadarModel(nn.Module):
         return ~torch.where(did_return, close_to_hit, in_range)
 
     def loss_and_metrics(self, ray_bundle: RayBundle, batch: Dict[str, torch.Tensor], layout: SegmentLayout,
-                         train: bool = True, generator: Optional[torch.Generator] = None):
-        """Forward and the loss terms of the JAX package's loss_and_metrics (without VGG and the
+                         train: bool = True, generator: Optional[torch.Generator] = None,
+                         tables: Optional[Dict[nn.Module, torch.Tensor]] = None):
+        """Forward and the loss terms of the JAX package's loss_and_metrics (without the
         camera-optimizer regularizer). Returns (total, loss_dict, metrics, outputs); the total is
         the sum of loss_dict in its insertion order."""
-        outputs = self.get_outputs(ray_bundle, layout, train, generator)
+        outputs = self.get_outputs(ray_bundle, layout, train, generator, tables)
         with record_function("losses"):
             return self._losses(outputs, ray_bundle, batch, layout, train)
 
@@ -344,6 +418,8 @@ class NeuRadarModel(nn.Module):
                 image = image.float() / 255.0
             rgb = outputs["rgb"]
             loss_dict["rgb_loss"] = torch.mean((image - rgb) ** 2) * conf.rgb_mult
+            if conf.vgg_mult > 0.0:
+                loss_dict["vgg_loss"] = self.vgg_loss(rgb, image) * conf.vgg_mult
             metrics["psnr"] = -10.0 * torch.log10(torch.mean((image - rgb.detach()) ** 2))
 
         if layout.num_lidar > 0 and "lidar_distance" in batch:

@@ -21,7 +21,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-SOURCES = ("composite_sky.cu", "attention.cu", "gather.cu")
+SOURCES = ("composite_sky.cu", "attention.cu", "attention_bf16.cu", "gather.cu")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 COMPILE_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC")
 
@@ -43,6 +43,10 @@ _SIGNATURES = {
     "self_attention_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _U, _U, _F, _P],
     # q, k, v, out, dout, lse, delta, dq, dk, dv, B, S, D, scale, seed, thresh, inv_keep, stream
     "self_attention_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _U, _U, _F, _P],
+    # q, k, v, out, out32, lse, B, S, D, scale, seed, thresh, inv_keep, stream (bf16 q, k, v, out)
+    "self_attention_bf16_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _U, _U, _F, _P],
+    # q, k, v, out32, dout, lse, delta, dq, dk, dv, B, S, D, scale, seed, thresh, inv_keep, stream
+    "self_attention_bf16_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _U, _U, _F, _P],
 }
 
 _lib = None

@@ -9,7 +9,10 @@ Everything runs on one explicit ``device``; there is no fallback to another.
 The render methods return tensors on that device (the JAX package returns
 numpy arrays), apart from the host-side lidar ``points`` and ``num_valid``.
 The metric loops render on the device and compute the metrics on the host
-with numpy and scipy, as the JAX package does.
+with numpy and scipy, as the JAX package does. Under a bf16 ``compute_dtype``
+with ``hoist_table_cast`` the train loss, the eval loss and every render cast
+the hash tables once (``NeuRadarModel.cast_tables``) and hand them down, as
+the JAX package's ``_cast_variables`` / ``make_train_loss_fn`` do.
 """
 
 from __future__ import annotations
@@ -78,7 +81,8 @@ class ADNeuRadarPipeline:
         def loss_fn(batch: Dict[str, np.ndarray], generator: torch.Generator):
             dev = batch_to_device(batch, self.device)
             bundle = build_train_bundle(self.tables, dev, self.layout, u)
-            total, loss_dict, metrics, _ = self.model.loss_and_metrics(bundle, dev, self.layout, True, generator)
+            total, loss_dict, metrics, _ = self.model.loss_and_metrics(bundle, dev, self.layout, True, generator,
+                                                                       self.model.cast_tables())
             return total, loss_dict, metrics
 
         return loss_fn
@@ -92,7 +96,8 @@ class ADNeuRadarPipeline:
         def eval_loss(batch: Dict[str, np.ndarray]):
             dev = batch_to_device(batch, self.device)
             bundle = build_train_bundle(self.tables, dev, self.layout, u)
-            total, loss_dict, metrics, _ = self.model.loss_and_metrics(bundle, dev, self.layout, False)
+            total, loss_dict, metrics, _ = self.model.loss_and_metrics(bundle, dev, self.layout, False,
+                                                                       tables=self.model.cast_tables())
             return total, loss_dict, metrics
 
         return eval_loss
@@ -118,12 +123,13 @@ class ADNeuRadarPipeline:
             coords = torch.cat([coords, coords[-1:].expand(n_pad, 2)])
         layout = SegmentLayout(num_cam=chunk, patch_size=(h, w))
 
+        tables = self.model.cast_tables()
         outs = []
         for i in range(0, coords.shape[0], chunk):
             cam_ids = torch.full((chunk,), cam_idx, dtype=torch.long, device=self.device)
             bundle = merge_modality_bundles(generate_camera_rays(self.tables.cameras, cam_ids, coords[i : i + chunk]),
                                             None, None)
-            outs.append(self.model.get_nff_outputs(bundle, layout))
+            outs.append(self.model.get_nff_outputs(bundle, layout, tables=tables))
         features = torch.cat([o["features"] for o in outs])[:n_rays]
         depth = torch.cat([o["depth"] for o in outs])[:n_rays]
         acc = torch.cat([o["accumulation"] for o in outs])[:n_rays]
@@ -147,7 +153,7 @@ class ADNeuRadarPipeline:
             torch.as_tensor(pts, dtype=torch.float32, device=self.device),
         )
         outputs = self.model.get_outputs(merge_modality_bundles(None, bundle, None),
-                                         SegmentLayout(num_lidar=max_points))
+                                         SegmentLayout(num_lidar=max_points), tables=self.model.cast_tables())
         return {
             "depth": outputs["depth"],
             "intensity": outputs["intensity"],
@@ -164,7 +170,8 @@ class ADNeuRadarPipeline:
         ids = torch.as_tensor([scan_idx] if single else list(scan_idx), dtype=torch.long, device=self.device)
         radars = self.tables.radars
         layout = SegmentLayout(num_radar_scans=len(ids), rays_per_scan=radars.rays_per_scan)
-        outputs = self.model.get_outputs(merge_modality_bundles(None, None, radars.generate_rays(ids)), layout)
+        outputs = self.model.get_outputs(merge_modality_bundles(None, None, radars.generate_rays(ids)), layout,
+                                         tables=self.model.cast_tables())
         radar_output = outputs["radar_output"]
         return {"radar_output": radar_output[0] if single else radar_output}
 

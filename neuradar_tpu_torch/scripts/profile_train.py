@@ -1,6 +1,7 @@
 """Profile the port's neuradar-synthetic train step at full width on one GPU.
 
-    python -m neuradar_tpu_torch.scripts.profile_train [--nff-chunks 1] [--steps 5] [--out FILE]
+    python -m neuradar_tpu_torch.scripts.profile_train [--nff-chunks 1] [--compute-dtype bfloat16]
+        [--radar-decode-chunks 4] [--steps 5] [--out FILE]
 
 Builds the seeded trainer at the preset's full width and batch, runs one
 warm-up step, times ``--steps`` untraced steps (host clock around a
@@ -37,7 +38,7 @@ from torch.profiler import ProfilerActivity, profile
 from neuradar_tpu_torch.configs.method_configs import method_configs
 from neuradar_tpu_torch.engine.trainer import Trainer
 
-# name fragments of the hand-written kernels in csrc/ (K1 forward and backward, K3, K2, P1)
+# name fragments of the hand-written kernels in csrc/ (K1 forward and backward, K3, K2 in float32 and bf16, P1)
 PORT_KERNELS = ("composite_sky", "composite_fwd", "attention_", "row_gather")
 LABELS = ("train/forward", "train/optimizer", "proposal_sampling", "field", "hash_encode", "composite_sky",
           "rgb_decoder", "radar_decoder", "losses")
@@ -95,6 +96,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--nff-chunks", type=int, default=1)
     ap.add_argument("--steps", type=int, default=5)
+    ap.add_argument("--compute-dtype", choices=("float32", "bfloat16"), default="float32")
+    ap.add_argument("--radar-decode-chunks", type=int, default=None, help="default: the model's (4)")
     ap.add_argument("--top", type=int, default=25)
     ap.add_argument("--out", default=None)
     args = ap.parse_args(argv)
@@ -107,10 +110,15 @@ def main(argv=None) -> int:
                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     cfg = method_configs["neuradar-synthetic"]()
     cfg.pipeline.model.nff_chunks = args.nff_chunks
+    cfg.pipeline.model.compute_dtype = args.compute_dtype
+    if args.radar_decode_chunks is not None:
+        cfg.pipeline.model.radar_decode_chunks = args.radar_decode_chunks
     trainer = Trainer(cfg, cfg.dataparser.setup().get_dataparser_outputs(), "cuda")
     trainer.setup()
     rays = trainer.pipeline.layout.total
     record = {"card": smi, "rays_per_step": rays, "nff_chunks": args.nff_chunks,
+              "compute_dtype": args.compute_dtype,
+              "radar_decode_chunks": cfg.pipeline.model.radar_decode_chunks,
               "warmup_s": _step(trainer)}
     torch.cuda.reset_peak_memory_stats()
     walls = [_step(trainer) for _ in range(args.steps)]

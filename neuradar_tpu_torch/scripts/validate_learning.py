@@ -1,5 +1,5 @@
-"""Learning check of the port: train NeuRadar briefly on the synthetic scene, float32, and check that
-it learns.
+"""Learning check of the port: train NeuRadar briefly on the synthetic scene, bf16 (``--no-bf16``:
+float32), and check that it learns.
 
     python -m neuradar_tpu_torch.scripts.validate_learning --scale tiny --iters 300 --eval-every 50
 
@@ -10,6 +10,8 @@ batch and the single-image / radar eval every N steps and writes every logged sc
 value] curves, with the keys of the JAX package's curves, to ``--curve-output``. Scales: ``tiny``
 (CPU-speed shapes: 512 rays a step, small hash tables, a shrunk radar FoV), ``micro`` (~6.6k rays),
 ``small`` (a quarter batch), ``full``. It trains on the card unless ``--device`` says otherwise.
+As the JAX package's check: ``compute_dtype`` bfloat16 by default (the dtype of its banked curve),
+the VGG loss off.
 """
 
 from __future__ import annotations
@@ -38,6 +40,8 @@ def main(argv=None) -> int:
     parser.add_argument("--output", default="", help="the report (default: <run dir>/learning_check.json)")
     parser.add_argument("--curve-output", default="", help="default: <run dir>/learning_curve.json")
     parser.add_argument("--device", default="cuda")
+    parser.add_argument("--bf16", action=argparse.BooleanOptionalAction, default=True,
+                        help="--no-bf16 runs the check in float32")
     args = parser.parse_args(argv)
 
     from neuradar_tpu_torch.data.datamanager import ADDataManagerConfig
@@ -48,6 +52,8 @@ def main(argv=None) -> int:
     pipe = ADNeuRadarPipelineConfig(datamanager=ADDataManagerConfig(**_BATCHES[args.scale]))
     m = pipe.model
     m.nff_chunks = args.chunks
+    m.loss.vgg_mult = 0.0
+    m.compute_dtype = "bfloat16" if args.bf16 else "float32"
     if args.scale == "tiny":
         m.field.grid.static.log2_hashmap_size = 12
         m.field.grid.actor.log2_hashmap_size = 10
@@ -106,8 +112,9 @@ def main(argv=None) -> int:
     if args.eval_every:
         curve_keys = sorted({k for e in events for k in e if k != "step"})
         curve_path = Path(args.curve_output or run_dir / "learning_curve.json")
-        curve_doc = {"scale": args.scale, "iters": args.iters, "dtype": "float32", "eval_every": args.eval_every,
-                     "device": str(trainer.device), "curves": {k: series(k) for k in curve_keys}}
+        curve_doc = {"scale": args.scale, "iters": args.iters, "dtype": m.compute_dtype,
+                     "eval_every": args.eval_every, "device": str(trainer.device),
+                     "curves": {k: series(k) for k in curve_keys}}
         curve_path.write_text(json.dumps(curve_doc))
         report["curve_output"] = str(curve_path)
         report["curve_keys"] = curve_keys

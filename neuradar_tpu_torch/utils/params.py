@@ -21,6 +21,7 @@ from torch import nn
 
 from neuradar_tpu_torch.field_components.encodings import HashEncoding
 from neuradar_tpu_torch.fields.neurad_field import SigmoidDensity
+from neuradar_tpu_torch.model_components.vgg import Vgg19Features
 
 # flax's truncated-normal variance scaling divides by the std of a standard
 # normal truncated to [-2, 2]
@@ -36,10 +37,14 @@ def _lecun_normal_(w: torch.Tensor, fan_in: int, gen: torch.Generator) -> None:
 def init_params(model: nn.Module, seed: int = 0) -> None:
     """Seeded initialization of every parameter and running statistic.
 
-    DynamicActors keeps the trajectories it was built from."""
+    DynamicActors keeps the trajectories it was built from, and a VGG-19 trunk its own filters
+    (loaded or seeded, model_components/vgg.py)."""
     device = next(model.parameters()).device
     gen = torch.Generator(device=device).manual_seed(seed)
+    own = {id(m) for v in model.modules() if isinstance(v, Vgg19Features) for m in v.modules()}
     for module in model.modules():
+        if id(module) in own:
+            continue
         if isinstance(module, nn.Linear):
             _lecun_normal_(module.weight, module.in_features, gen)
             nn.init.zeros_(module.bias)

@@ -356,6 +356,7 @@ def _tiny_trainer(scene, out, **kw):
         steps_per_eval_image=0, steps_per_eval_all_images=0, steps_per_eval_all_radars=0, steps_per_save=0,
         steps_per_log=1, seed=7, **kw)
     shrink(cfg.pipeline.model)
+    cfg.pipeline.model.loss.vgg_mult = 0.0  # 12-pixel patches are too small for VGG-19's four pools
     trainer = Trainer(cfg, scene, "cpu")
     trainer.setup(prefetch=False)
     return trainer

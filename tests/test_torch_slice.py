@@ -77,6 +77,7 @@ def pipelines():
     t_out.radar_fov = dict(RADAR_FOV)
     t_cfg = t_pipeline.ADNeuRadarPipelineConfig()
     shrink(t_cfg.model)
+    t_cfg.model.loss.vgg_mult = 0.0
     tpipe = t_pipeline.ADNeuRadarPipeline(t_cfg, t_out, "cpu")
     load_jax_params(tpipe.model, params, batch_stats)
     return jpipe, {"params": params, "batch_stats": batch_stats}, tpipe

@@ -267,6 +267,7 @@ def pipelines(scenes):
     params, batch_stats = perturb(variables["params"], variables["batch_stats"])
     tcfg = t_pipeline.ADNeuRadarPipelineConfig(datamanager=t_dm.ADDataManagerConfig(**DM))
     _train_config(tcfg.model)
+    tcfg.model.loss.vgg_mult = 0.0
     tpipe = t_pipeline.ADNeuRadarPipeline(tcfg, scenes[1], "cpu")
     load_jax_params(tpipe.model, params, batch_stats)
     return jpipe, params, batch_stats, tpipe
@@ -442,6 +443,7 @@ def test_ten_port_steps_lower_the_loss(scenes):
                         pipeline=t_pipeline.ADNeuRadarPipelineConfig(datamanager=t_dm.ADDataManagerConfig(**DM)),
                         optimizers=t_opt.default_optimizer_groups(2001))
     shrink(cfg.pipeline.model)
+    cfg.pipeline.model.loss.vgg_mult = 0.0  # 12-pixel patches are too small for VGG-19's four pools
     trainer = Trainer(cfg, scenes[1], "cpu")
     trainer.setup(prefetch=False)
     eval_loss = trainer.pipeline.make_eval_loss_fn()
@@ -512,6 +514,7 @@ def test_chunked_recompute_matches_one_chunk(scenes):
     for chunks in (1, 2):
         cfg = t_pipeline.ADNeuRadarPipelineConfig(datamanager=t_dm.ADDataManagerConfig(**DM))
         shrink(cfg.model)
+        cfg.model.loss.vgg_mult = 0.0  # 12-pixel patches are too small for VGG-19's four pools
         cfg.model.nff_chunks = chunks
         pipe = t_pipeline.ADNeuRadarPipeline(cfg, scenes[1], "cpu", seed=5)
         assert pipe.layout.total % 2 == 0
