@@ -152,10 +152,12 @@ BF16_FLOPS = 989e12
 PLAIN_REPS = 1
 # K2's kernels run each float32 product as three TF32 products on the tensor cores (3xTF32)
 K2_DESIGN = "3xtf32-mma.sync"
-# K2 at bf16: bf16 m16n8k16 mma.sync, one pass where both operands are bf16, two where one is P or
-# dS (split hi/lo); its passes of 2*B*S*S*D flops: forward S, P V x 2; backward S^T, dP^T, dV x 2,
-# dK x 2 (dK/dV pass), S, dP, dQ x 2 (dQ pass)
-K2_BF16_DESIGN = "bf16-mma.sync-m16n8k16, P and dS split in two bf16 passes"
+# K2 at bf16: warpgroup MMAs (wgmma) on tiles that the TMA copies into shared memory, m64n64k16 where
+# both operands are bf16, m64nDk16 with A from registers where one is P or dS (split hi/lo, two
+# passes); its passes of 2*B*S*S*D flops: forward S, P V x 2; backward S^T, dP^T, dV x 2, dK x 2
+# (dK/dV pass), S, dP, dQ x 2 (dQ pass)
+K2_BF16_DESIGN = ("bf16 wgmma on TMA tiles, 2 consumer warpgroups a block (the backward's in turns), P and dS "
+                  "split in two bf16 passes")
 K2_BF16_FWD_PASSES = 3
 K2_BF16_BWD_PASSES = 10
 # the kernels of the render and train paths; K3 (fused_composite) and P1 (row_gather) are on no path

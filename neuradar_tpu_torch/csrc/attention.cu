@@ -7,9 +7,9 @@
 // B = scans x heads, D in {16, 32, 48, 64}; lse and delta are [B, S].
 //
 // Dropout. The keep mask is a pure function of (seed, b, query row, key
-// column): a murmur3-finalizer hash, keep_hash below. It never depends on
-// a tile or block size, so the forward and the backward, and the plain
-// PyTorch version on the CPU (ops/attention.py), drop the same entries.
+// column): a murmur3-finalizer hash, keep_hash (attention_common.cuh). It
+// never depends on a tile or block size, so the forward and the backward, and
+// the plain PyTorch version on the CPU (ops/attention.py), drop the same entries.
 // (The TPU kernel hashed (seed + grid cell, row in block, column); its query
 // block differs between forward and backward under bfloat16, and so did its
 // mask.) Kept probabilities are scaled by 1 / (1 - rate), as flax does. The
@@ -65,34 +65,17 @@
 #include <math_constants.h>
 #include <stdint.h>
 
+#include "attention_common.cuh"
+
 namespace {
 
 constexpr int kWarps = 4;
 constexpr int kThreads = 32 * kWarps;
 constexpr int kTile = 64;     // rows of a block and of a staged tile; 16 per warp
 constexpr int kCols = kTile / 8;  // 8-column groups of a 16 x 64 score tile
-constexpr float kLog2e = 1.4426950408889634f;
-constexpr float kLn2 = 0.6931471805599453f;
 
 template <int D>
 __host__ __device__ constexpr int pitch() { return D + 4; }
-
-__device__ __forceinline__ uint32_t fmix32(uint32_t x) {
-  x ^= x >> 16;
-  x *= 0x7FEB352Du;
-  x ^= x >> 15;
-  x *= 0x846CA68Bu;
-  x ^= x >> 16;
-  return x;
-}
-
-// The dropout hash: keep_hash(seed, b, qi, kj) = fmix32(qi * kRowMul + kj * kColMul + hash_stream(seed, b)),
-// and an entry is kept when it is >= thresh; ops/attention.keep_mask computes the same bits on the
-// CPU. The kernels hoist the stream and the term of their fixed row out of the key loop.
-constexpr uint32_t kRowMul = 0x9E3779B9u;
-constexpr uint32_t kColMul = 0x85EBCA6Bu;
-
-__device__ __forceinline__ uint32_t hash_stream(uint32_t seed, uint32_t b) { return fmix32(seed + b * 0x27D4EB2Fu); }
 
 // ---- 3xTF32 on the tensor cores ----
 
@@ -222,16 +205,6 @@ __device__ __forceinline__ void add_to(float (&acc)[N][4], const float (&part)[N
 #pragma unroll
     for (int j = 0; j < 4; ++j) acc[i][j] += part[i][j];
   }
-}
-
-__device__ __forceinline__ float quad_max(float x) {
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
-  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
-}
-
-__device__ __forceinline__ float quad_sum(float x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
 template <int D>
@@ -667,21 +640,12 @@ __global__ void __launch_bounds__(kThreads) attention_bwd_dq(
   }
 }
 
-// Sets a kernel's dynamic shared memory limit and launches it; returns the first cudaError_t.
-template <typename Kernel, typename... Args>
-int launch(Kernel kernel, dim3 grid, int smem, cudaStream_t stream, Args... args) {
-  int err = static_cast<int>(cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem));
-  if (err != 0) return err;
-  kernel<<<grid, kThreads, smem, stream>>>(args...);
-  return static_cast<int>(cudaGetLastError());
-}
-
 template <int D>
 int launch_fwd(const float* q, const float* k, const float* v, float* o, float* lse, int B, int S, float scale,
                uint32_t seed, uint32_t thresh, float inv_keep, cudaStream_t stream) {
   const dim3 grid((S + kTile - 1) / kTile, B);
-  return launch(attention_fwd_kernel<D>, grid, fwd_smem_bytes<D>(), stream, q, k, v, o, lse, S, scale, seed, thresh,
-                inv_keep);
+  return launch(attention_fwd_kernel<D>, grid, kThreads, fwd_smem_bytes<D>(), stream, q, k, v, o, lse, S, scale, seed,
+                thresh, inv_keep);
 }
 
 template <int D>
@@ -693,10 +657,10 @@ int launch_bwd(const float* q, const float* k, const float* v, const float* o, c
   int err = static_cast<int>(cudaGetLastError());
   if (err != 0) return err;
   const dim3 grid((S + kTile - 1) / kTile, B);
-  err = launch(attention_bwd_dkdv<D>, grid, bwd_smem_bytes<D>(), stream, q, k, v, dout, lse,
+  err = launch(attention_bwd_dkdv<D>, grid, kThreads, bwd_smem_bytes<D>(), stream, q, k, v, dout, lse,
                static_cast<const float*>(delta), dk, dv, S, scale, seed, thresh, inv_keep);
   if (err != 0) return err;
-  return launch(attention_bwd_dq<D>, grid, bwd_smem_bytes<D>(), stream, q, k, v, dout, lse,
+  return launch(attention_bwd_dq<D>, grid, kThreads, bwd_smem_bytes<D>(), stream, q, k, v, dout, lse,
                 static_cast<const float*>(delta), dq, S, scale, seed, thresh, inv_keep);
 }
 

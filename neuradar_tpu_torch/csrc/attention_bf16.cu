@@ -6,96 +6,119 @@
 // under compute_dtype bfloat16: q, k, v and the output bf16, every sum in float32 on the bf16
 // values (the scores, the softmax, P and dS are float32), dQ returned in bf16, dK and dV summed in
 // float32 and rounded to bf16 once. csrc/attention.cu is the float32 kernel; the two share the
-// layout, the dropout hash and the two-pass backward, and differ in the products.
+// dropout hash (attention_common.cuh), the layout of rows and the two-pass backward.
 //
 // Dropout: keep_hash(seed, b, query, key), the same bits as csrc/attention.cu and
 // ops/attention.keep_mask. Kept probabilities are scaled by 1 / (1 - rate); the softmax
-// normaliser sums every key.
+// normaliser sums every key. The scale is applied once to each row's sum (the output, dV), not to
+// each probability.
 //
 // What bounds it on the H100: operations. At a radar decode group (B = 4 scans of S = 3,531 rays,
 // D = 48) the forward does 4*B*S*S*D flops and the backward 10*B*S*S*D over a few B*S*D bf16
-// inputs; bf16 tensor cores run 989 TFLOP/s dense, twice TF32's rate.
+// inputs. At D = 48 a score costs 2*D = 96 flops on the tensor cores in the forward (3 bf16 passes
+// of D) and some 10-20 instructions of SIMT work (exponent, row max and sum, the dropout hash,
+// the hi/lo split), so the issue slots of the elementwise work, not the tensor cores, are the
+// tighter limit; the design keeps that work small and runs it beside the products.
 //
-// What the design does about it: every S*S*D product runs on the tensor cores as
-// mma.sync.m16n8k16 with bf16 operands and float32 accumulation.
-//  - Both operands bf16 (S = Q K^T, dP = dO V^T): one mma per product; the float32 scores are
-//    scaled by D^-1/2 * log2(e) after it, so the scale adds no rounding.
-//  - One operand float32 (P or dS; O = P V, dV = P_drop^T dO, dQ = dS K, dK = dS^T Q): the float32
-//    value x is split into hi = bf16(x) and lo = bf16(x - hi), and the product is lo b + hi b,
-//    two mmas. x = hi + lo to about 2^-17 relative, so the error stays under the bf16 rounding of
-//    the output (tests/test_torch_attention_bf16.py measures it against float64, and a single
-//    pass, which does not).
+// Products. Every S*S*D product is a warpgroup MMA (wgmma.mma_async, sm_90a) with bf16 operands
+// and float32 accumulation, on 64-row tiles that the Tensor Memory Accelerator (TMA) copies into
+// shared memory.
+//  - Both operands bf16 (S = Q K^T, dP = dO V^T and their transposes): m64n64k16, A and B read
+//    from shared memory (K-major), one pass.
+//  - One operand float32 (P or dS; O = P V, dV = P_drop^T dO, dQ = dS K, dK = dS^T Q): m64nDk16
+//    with A from registers and B the streamed tile transposed (MN-major). The float32 value x is
+//    split into hi = bf16(x) and lo = bf16(x - hi), and the product is lo b + hi b, two passes.
+//    x = hi + lo to about 2^-17 relative, so the error stays under the bf16 rounding of the output
+//    (tests/test_torch_attention_bf16.py measures it against float64, and a single pass, which
+//    does not). The wgmma accumulator of a score tile holds, in each warp, the layout of
+//    mma.sync.m16n8k16's accumulator, which is its A operand's, so P and dS feed the next product
+//    from the registers that hold them (acc_to_a).
 // The tensor cores' float32 accumulation does not round to nearest, so a product that sums over
 // all S rows sums each 64-row tile in a fresh accumulator and adds it to the running sum in float32
-// SIMT, as the float32 kernel does.
+// SIMT.
 //
-// Layout. A block has 4 warps; a warp owns 16 rows of a 64-row tile. Tiles are staged in dynamic
-// shared memory by 16-byte cp.async copies, double-buffered, half the bytes of the float32
-// kernel's; rows past S are zero-filled by the copy and masked. The row pitch is D + 8 bf16: rows
-// 16-byte aligned for cp.async, and the fragment reads of rows g = lane / 4 at word t = lane % 4
-// touch 32 distinct banks. m16n8k16 fragments (PTX ISA): A holds rows (g, g + 8) x columns
-// (2t, 2t + 1, 2t + 8, 2t + 9), B rows (2t, 2t + 1, 2t + 8, 2t + 9) of column g, the accumulator
-// rows (g, g + 8) x columns (2t, 2t + 1). So two neighbouring 8-column accumulator groups are
-// exactly an A fragment of 16 columns: P and dS feed the next product without moving between
-// lanes. A B operand whose contraction runs down the rows of a tile (V, dO, Q, K in the second
-// products) is packed from two 16-bit reads.
+// Tiles. A [B, S, D] tensor is a 3-D TMA map over (D, S, B) with a box of 16 columns x 64 rows: a
+// 64-row tile is D / 16 boxes, each a "slab" of 64 rows x 32 bytes, stored with the 32-byte swizzle
+// (the 16-byte half of a row is flipped in rows 4-7 of every 8; the only swizzle whose span, 32
+// bytes, divides a row of every head width: 32, 64, 96 or 128 bytes). Rows past S are outside the
+// map and arrive as zeros; never the next scan's rows. The wgmma descriptors read the same slabs:
+// K-major, a slab is one 16-deep step of the contraction (8-row groups kSbo apart); MN-major (the
+// transposed operand), a 16-row step of a tile spans the slabs kMnLbo apart. A block has kGroups
+// consumer warpgroups of 64 rows each and a producer warpgroup, which gives its registers to the
+// consumers (setmaxnreg); one thread of the producer issues every copy into a ring of kStages
+// stages, each with a "full" mbarrier (the copy's bytes) and an "empty" one (every consumer thread
+// arrives when it is done with the stage).
 //
-// Forward (flash-attention style): one block per (scan, 64 queries), Q in registers, K and V tiles
-// of 64 keys streaming; the online softmax in log2 units; the row log-sum-exp (float32) for the
-// backward. Asked for it, the forward also writes the output unrounded in float32: the backward's
-// delta_i = sum_d dO_id O_id is taken from it, since from the bf16 output it would carry the
-// output's rounding into every dS of the row.
+// Forward (flash-attention style): each warpgroup owns 64 queries; K and V tiles of 64 keys stream.
+// The product of the next tile's scores is issued before this tile's softmax and runs beside it.
+// The online softmax works in log2 units on the raw scores: exp2(s * c - m * c), c = D^-1/2 *
+// log2(e), one FFMA a score; the dropout hash adds the key's part as a constant of the unrolled
+// loop. The row log-sum-exp (float32) for the backward; asked for it, the output unrounded in
+// float32 too: the backward's delta_i = sum_d dO_id O_id is taken from it, since from the bf16
+// output it would carry the output's rounding into every dS of the row.
 //
-// Backward (two passes, no atomics, deterministic): delta first; attention_bwd_dkdv, one block
-// per (scan, 64 keys), walking query tiles: S^T = K Q^T, dP^T = V dO^T, dV += (m o P)^T dO,
-// dK += dS^T Q; attention_bwd_dq, one block per (scan, 64 queries), walking key tiles: S, dP,
-// dQ += dS K. dS = P o (m o dP - delta).
+// Backward (two passes, no atomics, deterministic): attention_bf16_bwd_delta writes delta and
+// lse * log2(e) per row, padded with zeros to a multiple of kPad rows; attention_bf16_bwd_dkdv,
+// each warpgroup 64 keys, walking query tiles (with their lse and delta, copied by the same
+// mbarrier): S^T = K Q^T, dP^T = V dO^T, dV += (m o P)^T dO, dK += dS^T Q; attention_bf16_bwd_dq,
+// each warpgroup 64 queries, walking key tiles: S, dP, dQ += dS K. dS = P o (m o dP - delta).
+// A tile's split products and the next tile's S and dP go to the tensor cores as one batch, and the
+// block's two warpgroups issue their batches in turns (Turns), so that one runs its elementwise
+// work while the other's products run. Query rows past S have Q = dO = 0 and delta = lse = 0, so
+// their P is 1 and their dS 0: they add nothing. Key rows past S have K = V = 0, so they add
+// nothing to dQ but their P, which the last tile of the dQ pass masks (an exponent of -lse could
+// overflow).
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
 #include <stdint.h>
 
+#include "attention_common.cuh"
+
 namespace {
 
-constexpr int kWarps = 4;
-constexpr int kThreads = 32 * kWarps;
-constexpr int kTile = 64;         // rows of a block and of a staged tile; 16 per warp
-constexpr int kCols = kTile / 8;  // 8-column groups of a 16 x 64 score tile
-constexpr float kLog2e = 1.4426950408889634f;
-constexpr float kLn2 = 0.6931471805599453f;
+constexpr int kTile = 64;                       // rows of a tile and of a consumer warpgroup
+constexpr int kGroups = 2;                      // consumer warpgroups of a block
+constexpr int kStages = 3;                      // streamed tiles in flight
+constexpr int kConsumers = 128 * kGroups;       // consumer threads
+constexpr int kThreads = kConsumers + 128;      // and a producer warpgroup, one thread of which copies
+constexpr int kBlocksPerSm = kGroups == 1 ? 2 : 1;
+// registers a thread: the producer gives its own to the consumers (setmaxnreg), within the block's
+// 65,536 / kBlocksPerSm
+constexpr int kProducerRegs = 24;
+constexpr int kConsumerRegs = kGroups == 1 ? 232 : 240;
+constexpr int kBoxCols = 16;                    // bf16 columns of a TMA box
+constexpr uint32_t kRowBytes = 32;              // a row of a slab: one box row, the swizzle's span
+constexpr uint32_t kSlabBytes = kTile * kRowBytes;
+constexpr uint32_t kSbo = 8 * kRowBytes;        // descriptor: between 8-row groups
+constexpr uint32_t kKmajorLbo = 16;             // descriptor, K-major: unused by the swizzled layouts
+constexpr uint32_t kMnLbo = kSlabBytes;         // descriptor, MN-major: between 16-column slabs
+constexpr uint64_t kSwizzle32 = 3;              // descriptor layout type of the 32-byte swizzle
+constexpr uint32_t kAlign = 1024;               // the tiles' alignment in shared memory
+constexpr int kPad = 128;                       // the backward's row vectors: rows padded to a multiple
+constexpr bool kTakeTurns = true;               // the backward's warpgroups issue their products in turns
 
 // bf16 values are handled as their 16-bit patterns
 using raw16 = uint16_t;
 
 template <int D>
-__host__ __device__ constexpr int pitch() { return D + 8; }
+__host__ __device__ constexpr uint32_t tile_bytes() { return D / kBoxCols * kSlabBytes; }
 
-__device__ __forceinline__ uint32_t fmix32(uint32_t x) {
-  x ^= x >> 16;
-  x *= 0x7FEB352Du;
-  x ^= x >> 15;
-  x *= 0x846CA68Bu;
-  x ^= x >> 16;
-  return x;
+__host__ __device__ constexpr int padded_rows(int S) { return (S + kPad - 1) / kPad * kPad; }
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) { return static_cast<uint32_t>(__cvta_generic_to_shared(p)); }
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
 }
-
-// keep_hash(seed, b, qi, kj) = fmix32(qi * kRowMul + kj * kColMul + hash_stream(seed, b)), as in
-// csrc/attention.cu; an entry is kept when it is >= thresh.
-constexpr uint32_t kRowMul = 0x9E3779B9u;
-constexpr uint32_t kColMul = 0x85EBCA6Bu;
-
-__device__ __forceinline__ uint32_t hash_stream(uint32_t seed, uint32_t b) { return fmix32(seed + b * 0x27D4EB2Fu); }
-
-__device__ __forceinline__ float bf16_to_float(raw16 x) { return __uint_as_float(static_cast<uint32_t>(x) << 16); }
 
 // two floats rounded to nearest even, x0 in the low half (the lower column or row)
 __device__ __forceinline__ uint32_t pack_bf16(float x0, float x1) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(x0, x1);
   return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t pack_raw(raw16 lo, raw16 hi) {
-  return static_cast<uint32_t>(lo) | (static_cast<uint32_t>(hi) << 16);
 }
 
 // hi = bf16(x), lo = bf16(x - hi) for a pair
@@ -106,97 +129,14 @@ __device__ __forceinline__ void split_pair(float x0, float x1, uint32_t& hi, uin
   lo = pack_bf16(x0 - hf.x, x1 - hf.y);
 }
 
-struct FragA2 {  // a float32 A operand of 16 x 16 as hi and lo bf16 parts
-  uint32_t hi[4], lo[4];
-};
-
-// Accumulator groups c0 (columns 0-7) and c1 (columns 8-15) as the A operand of the next product:
-// registers (g, 2t..), (g + 8, 2t..), (g, 2t + 8..), (g + 8, 2t + 8..).
-__device__ __forceinline__ void acc_to_a(FragA2& a, const float (&c0)[4], const float (&c1)[4]) {
-  split_pair(c0[0], c0[1], a.hi[0], a.lo[0]);
-  split_pair(c0[2], c0[3], a.hi[1], a.lo[1]);
-  split_pair(c1[0], c1[1], a.hi[2], a.lo[2]);
-  split_pair(c1[2], c1[3], a.hi[3], a.lo[3]);
-}
-
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-      "{%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// c += a b for a split float32 A: the low part first
-__device__ __forceinline__ void mma_split(float (&c)[4], const FragA2& a, uint32_t b0, uint32_t b1) {
-  mma_bf16(c, a.lo, b0, b1);
-  mma_bf16(c, a.hi, b0, b1);
-}
-
-__device__ __forceinline__ uint32_t word(const raw16* p) { return *reinterpret_cast<const uint32_t*>(p); }
-
-// A fragment of rows r0 + (g, g + 8), columns c0 + (2t, 2t + 1, 2t + 8, 2t + 9) of a tile
-template <int D>
-__device__ __forceinline__ void load_a(uint32_t (&a)[4], const raw16* tile, int r0, int c0, int g, int t) {
-  const raw16* p = tile + (r0 + g) * pitch<D>() + c0 + 2 * t;
-  a[0] = word(p);
-  a[1] = word(p + 8 * pitch<D>());
-  a[2] = word(p + 8);
-  a[3] = word(p + 8 * pitch<D>() + 8);
-}
-
-// B fragment of B[k][n] = tile[n0 + n][k0 + k] (the rows of the tile are B's columns)
-template <int D>
-__device__ __forceinline__ void load_b_rows(uint32_t& b0, uint32_t& b1, const raw16* tile, int n0, int k0, int g,
-                                            int t) {
-  const raw16* p = tile + (n0 + g) * pitch<D>() + k0 + 2 * t;
-  b0 = word(p);
-  b1 = word(p + 8);
-}
-
-// B fragment of B[k][n] = tile[k0 + k][n0 + n] (the contraction runs down the tile's rows)
-template <int D>
-__device__ __forceinline__ void load_b_cols(uint32_t& b0, uint32_t& b1, const raw16* tile, int k0, int n0, int g,
-                                            int t) {
-  constexpr int P = pitch<D>();
-  const raw16* p = tile + (k0 + 2 * t) * P + n0 + g;
-  b0 = pack_raw(p[0], p[P]);
-  b1 = pack_raw(p[8 * P], p[9 * P]);
-}
-
-// ---- asynchronous copies into shared memory ----
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
-  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src), "r"(valid ? 16 : 0) : "memory");
-}
-
-__device__ __forceinline__ void cp_async4(float* dst, const float* src, bool valid) {
-  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(src), "r"(valid ? 4 : 0) : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
-
-__device__ __forceinline__ void cp_async_wait_one() { asm volatile("cp.async.wait_group 1;\n" ::: "memory"); }
-
-// Rows r0 .. r0 + 63 of one scan's [S, D] bf16 matrix into a [64, pitch] tile; rows past S become 0.
-template <int D>
-__device__ __forceinline__ void stage_rows(raw16* tile, const raw16* src, int r0, int S) {
-  constexpr int kChunks = D / 8;  // 16-byte chunks per row
-  for (int i = threadIdx.x; i < kTile * kChunks; i += kThreads) {
-    const int r = i / kChunks;
-    const int c = 8 * (i % kChunks);
-    const bool valid = r0 + r < S;
-    cp_async16(tile + r * pitch<D>() + c, src + static_cast<long long>(valid ? r0 + r : 0) * D + c, valid);
-  }
-}
-
-__device__ __forceinline__ void stage_vector(float* dst, const float* src, int r0, int S) {
-  for (int r = threadIdx.x; r < kTile; r += kThreads) {
-    const bool valid = r0 + r < S;
-    cp_async4(dst + r, src + (valid ? r0 + r : 0), valid);
-  }
+// Score accumulator groups 2kk and 2kk + 1 (columns 16kk .. 16kk + 15) as the A operand of step kk:
+// registers (g, 2t..), (g + 8, 2t..), (g, 2t + 8..), (g + 8, 2t + 8..), each split in hi and lo.
+__device__ __forceinline__ void acc_to_a(uint32_t (&hi)[4], uint32_t (&lo)[4], const float (&c0)[4],
+                                         const float (&c1)[4]) {
+  split_pair(c0[0], c0[1], hi[0], lo[0]);
+  split_pair(c0[2], c0[3], hi[1], lo[1]);
+  split_pair(c1[0], c1[1], hi[2], lo[2]);
+  split_pair(c1[2], c1[3], hi[3], lo[3]);
 }
 
 template <int N>
@@ -214,23 +154,319 @@ __device__ __forceinline__ void add_to(float (&acc)[N][4], const float (&part)[N
   }
 }
 
+// ---- mbarriers and the Tensor Memory Accelerator ----
+
+__device__ __forceinline__ void bar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void fence_barrier_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// arrive and add bytes to the transaction count of the barrier's phase
+__device__ __forceinline__ void bar_expect(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void bar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+// wait for the completion of the barrier's phase of this parity
+__device__ __forceinline__ void bar_wait(uint32_t bar, uint32_t parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred done;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
+      "@done bra DONE;\n"
+      "bra WAIT;\n"
+      "DONE:\n"
+      "}\n" ::"r"(bar),
+      "r"(parity)
+      : "memory");
+}
+
+// one box (16 columns from col, 64 rows from row, of scan b) into a slab; completes on bar
+__device__ __forceinline__ void tma_load_box(uint32_t dst, const CUtensorMap* map, uint32_t bar, int col, int row,
+                                             int b) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, {%2, %3, %4}], "
+      "[%5];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(col), "r"(row), "r"(b), "r"(bar)
+      : "memory");
+}
+
+// rows row .. row + 63 of scan b as a tile of D / 16 slabs
+template <int D>
+__device__ __forceinline__ void load_tile(uint32_t dst, const CUtensorMap* map, uint32_t bar, int row, int b) {
+#pragma unroll
+  for (int j = 0; j < D / kBoxCols; ++j) tma_load_box(dst + j * kSlabBytes, map, bar, j * kBoxCols, row, b);
+}
+
+// bytes (a multiple of 16) from a 16-byte aligned address; completes on bar
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_t bytes, uint32_t bar) {
+  asm volatile("cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(dst),
+               "l"(src), "r"(bytes), "r"(bar)
+               : "memory");
+}
+
+// ---- warpgroup MMA ----
+
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | static_cast<uint64_t>(lbo >> 4) << 16 |
+         static_cast<uint64_t>(sbo >> 4) << 32 | kSwizzle32 << 62;
+}
+
+// K-major operand of contraction step kk: slab kk of a tile (64 rows x 16 columns)
+__device__ __forceinline__ uint64_t desc_k(uint32_t tile, int kk) {
+  return smem_desc(tile + kk * kSlabBytes, kKmajorLbo, kSbo);
+}
+
+// MN-major operand of contraction step kk: rows 16kk .. 16kk + 15 of a tile, all its columns
+__device__ __forceinline__ uint64_t desc_mn(uint32_t tile, int kk) {
+  return smem_desc(tile + kk * 16 * kRowBytes, kMnLbo, kSbo);
+}
+
 template <int N>
-__device__ __forceinline__ void scale_all(float (&a)[N][4], float s) {
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
+template <int N>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
+__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+
+__device__ __forceinline__ void wgmma_commit() { asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory"); }
+
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// The backward's two consumer warpgroups take turns to issue their products (named barriers 1 and
+// 2, as FlashAttention-3's ping-pong): while one waits for its products, the other runs its
+// elementwise work, where in lockstep both would wait at once. Warpgroup 0 goes first; each turn
+// hands over to the other, but for warpgroup 1's last, which nobody takes.
+struct Turns {
+  int wg;
+  bool on;
+  __device__ __forceinline__ void start() const {
+    if (on && wg == 1) asm volatile("bar.arrive 1, 256;\n" ::: "memory");
+  }
+  __device__ __forceinline__ void take() const {
+    if (!on) return;
+    if (wg == 0) asm volatile("bar.sync 1, 256;\n" ::: "memory");
+    else asm volatile("bar.sync 2, 256;\n" ::: "memory");
+  }
+  __device__ __forceinline__ void pass(bool last) const {
+    if (!on) return;
+    if (wg == 0) asm volatile("bar.arrive 2, 256;\n" ::: "memory");
+    else if (!last) asm volatile("bar.arrive 1, 256;\n" ::: "memory");
+  }
+};
+
+// Keeps the compiler from moving reads or writes of an accumulator across an asynchronous product.
+template <int N>
+__device__ __forceinline__ void fence_acc(float (&d)[N][4]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) {
 #pragma unroll
-    for (int j = 0; j < 4; ++j) a[i][j] *= s;
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+f"(d[i][j])::"memory");
   }
 }
 
-__device__ __forceinline__ float quad_max(float x) {
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
-  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+// The accumulator of m64nNk16 in each thread: d[n][0..3] = rows (g, g, g + 8, g + 8) of the warp's 16
+// x columns (8n + 2t, 8n + 2t + 1, 8n + 2t, 8n + 2t + 1). scale-d 0 (accumulate = 0) starts a fresh sum.
+// d (+)= A B, m64n64k16: A [64 x 16] and B [16 x 64] both K-major in shared memory (descriptors)
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[8][4], uint64_t desc_a, uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]), "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]), "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]), "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]), "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]), "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]), "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]), "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
 }
 
-__device__ __forceinline__ float quad_sum(float x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+
+// d (+)= A B, m64nNk16: A [64 x 16] from registers (acc_to_a's layout), B [16 x N] MN-major in shared memory
+template <int N>
+__device__ __forceinline__ void wgmma_rs(float (&d)[N / 8][4], const uint32_t (&a)[4], uint64_t desc_b, int accumulate);
+
+template <>
+__device__ __forceinline__ void wgmma_rs<16>(float (&d)[2][4], const uint32_t (&a)[4], uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "{%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]), "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<32>(float (&d)[4][4], const uint32_t (&a)[4], uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]), "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]), "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]), "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<48>(float (&d)[6][4], const uint32_t (&a)[4], uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %29, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n48k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23}, "
+      "{%24, %25, %26, %27}, %28, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]), "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]), "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]), "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]), "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]), "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<64>(float (&d)[8][4], const uint32_t (&a)[4], uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]), "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]), "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]), "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]), "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]), "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]), "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]), "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate));
+}
+
+// S = A B^T and dP = A' B'^T for a warpgroup's 64 rows and a tile of 64: D / 16 steps each, issued
+template <int D>
+__device__ __forceinline__ void issue_score_pair(float (&sc)[8][4], float (&dp)[8][4], uint32_t a, uint32_t b,
+                                                 uint32_t a2, uint32_t b2) {
+#pragma unroll
+  for (int kk = 0; kk < D / kBoxCols; ++kk) wgmma_ss_n64(sc, desc_k(a, kk), desc_k(b, kk), kk);
+#pragma unroll
+  for (int kk = 0; kk < D / kBoxCols; ++kk) wgmma_ss_n64(dp, desc_k(a2, kk), desc_k(b2, kk), kk);
+}
+
+// S (+)= Q K^T for a warpgroup's 64 rows and a tile of 64 keys: D / 16 steps, issued and committed
+template <int D>
+__device__ __forceinline__ void issue_scores(float (&s)[8][4], uint32_t a_tile, uint32_t b_tile) {
+  fence_acc(s);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < D / kBoxCols; ++kk) wgmma_ss_n64(s, desc_k(a_tile, kk), desc_k(b_tile, kk), kk);
+  wgmma_commit();
+}
+
+// part = A B over a 64-deep contraction, A split (hi, lo) in registers, B a tile read MN-major; the
+// low parts first, into a fresh accumulator. Issued, not committed.
+template <int D>
+__device__ __forceinline__ void issue_split(float (&part)[D / 8][4], const uint32_t (&hi)[4][4],
+                                            const uint32_t (&lo)[4][4], uint32_t b_tile) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    wgmma_rs<D>(part, lo[kk], desc_mn(b_tile, kk), kk);
+    wgmma_rs<D>(part, hi[kk], desc_mn(b_tile, kk), 1);
+  }
+}
+
+// The consumer warpgroups of the block that starts at row block_row (< S) with a row before S; the
+// others take no part, so that no copy asks for a box wholly outside the tensor.
+__device__ __forceinline__ int active_groups(int S, int block_row) {
+  return min(kGroups, (S - block_row + kTile - 1) / kTile);
+}
+
+// The block's shared memory: the tiles from the first kAlign-aligned address.
+__device__ __forceinline__ uint32_t tiles_base(const uint8_t* raw) { return (smem_u32(raw) + kAlign - 1) & ~(kAlign - 1); }
+
+template <int D>
+constexpr int fwd_smem_bytes() { return (kGroups + 2 * kStages) * tile_bytes<D>() + kAlign; }
+
+// One consumer thread of the forward: rows row0 and row0 + 8 of its warp's 16.
+template <int D>
+struct FwdRows {
+  float o[D / 8][4], part[D / 8][4];
+  float m0, m1, l0, l1;  // running maxima of the raw scores and this thread's part of the row sums
+  uint32_t h0, h1;       // the rows' keep hash at key 2t of tile 0
+};
+
+// Tile j of the forward: issue the next tile's scores into next, softmax and dropout on cur (tile j's
+// scores, complete), O's part from P and V, then O = O * correction + part.
+template <int D, bool kDrop>
+__device__ __forceinline__ void fwd_step(FwdRows<D>& r, float (&cur)[8][4], float (&next)[8][4], int j, int n_tiles,
+                                         int S, float c, uint32_t thresh, uint32_t my_q, uint32_t kv, uint32_t full,
+                                         uint32_t empty, int t) {
+  constexpr uint32_t T = tile_bytes<D>();
+  const int st = j % kStages;
+  const int k0 = j * kTile;
+  if (k0 + kTile > S) {  // the ragged key tail (the last tile: no product is in flight)
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        if (k0 + 8 * n + 2 * t + (i & 1) >= S) cur[n][i] = -CUDART_INF_F;
+      }
+    }
+  }
+  if (j + 1 < n_tiles) {
+    const int sn = (j + 1) % kStages;
+    bar_wait(full + 8 * sn, ((j + 1) / kStages) & 1);
+    issue_scores<D>(next, my_q, kv + sn * 2 * T);
+  }
+  // online softmax; the first tile holds key 0, so the maxima are finite from here on
+  float mx0 = r.m0, mx1 = r.m1;
+#pragma unroll
+  for (int n = 0; n < 8; ++n) {
+    mx0 = fmaxf(mx0, fmaxf(cur[n][0], cur[n][1]));
+    mx1 = fmaxf(mx1, fmaxf(cur[n][2], cur[n][3]));
+  }
+  mx0 = quad_max(mx0);
+  mx1 = quad_max(mx1);
+  const float corr0 = ex2((r.m0 - mx0) * c), corr1 = ex2((r.m1 - mx1) * c);
+  r.m0 = mx0;
+  r.m1 = mx1;
+  r.l0 *= corr0;
+  r.l1 *= corr1;
+  const float nm0 = -mx0 * c, nm1 = -mx1 * c;
+  const uint32_t ht0 = r.h0 + static_cast<uint32_t>(k0) * kColMul, ht1 = r.h1 + static_cast<uint32_t>(k0) * kColMul;
+  uint32_t hi[4][4], lo[4][4];
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    float p[2][4];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int n = 2 * kk + h;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float e = ex2(fmaf(cur[n][i], c, i < 2 ? nm0 : nm1));
+        if (i < 2) r.l0 += e; else r.l1 += e;  // every key counts, dropped or not
+        p[h][i] = e;
+        if (kDrop) {
+          const uint32_t x = (i < 2 ? ht0 : ht1) + static_cast<uint32_t>(8 * n + (i & 1)) * kColMul;
+          p[h][i] = fmix32(x) >= thresh ? e : 0.0f;
+        }
+      }
+    }
+    acc_to_a(hi[kk], lo[kk], p[0], p[1]);
+  }
+  wgmma_fence();
+  issue_split<D>(r.part, hi, lo, kv + st * 2 * T + T);
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_acc(r.part);
+  fence_acc(next);
+  bar_arrive(empty + 8 * st);
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n) {
+    r.o[n][0] = fmaf(r.o[n][0], corr0, r.part[n][0]);
+    r.o[n][1] = fmaf(r.o[n][1], corr0, r.part[n][1]);
+    r.o[n][2] = fmaf(r.o[n][2], corr1, r.part[n][2]);
+    r.o[n][3] = fmaf(r.o[n][3], corr1, r.part[n][3]);
+  }
 }
 
 // a pair of row values to a bf16 row at column d (and to a float32 row when out32 is set)
@@ -239,514 +475,564 @@ __device__ __forceinline__ void store_pair(raw16* out, float* out32, long long o
   if (out32 != nullptr) *reinterpret_cast<float2*>(out32 + off) = make_float2(x0, x1);
 }
 
-template <int D>
-constexpr int fwd_smem_bytes() { return 2 * 2 * kTile * pitch<D>() * 2; }  // K and V, two stages
-
-template <int D>
-__global__ void __launch_bounds__(kThreads) attention_bf16_fwd_kernel(
-    const raw16* __restrict__ q, const raw16* __restrict__ k, const raw16* __restrict__ v, raw16* __restrict__ out,
-    float* __restrict__ out32, float* __restrict__ lse, int S, float scale, uint32_t seed, uint32_t thresh,
-    float inv_keep) {
-  constexpr int P = pitch<D>();
-  constexpr int KD = D / 16;  // 16-deep steps along D
-  constexpr int ND = D / 8;   // 8-column groups along D
-  extern __shared__ float4 smem4[];
-  raw16* ks = reinterpret_cast<raw16*>(smem4);  // [2][kTile][P]
-  raw16* vs = ks + 2 * kTile * P;               // [2][kTile][P]
-
+template <int D, bool kDrop>
+__global__ void __launch_bounds__(kThreads, kBlocksPerSm) attention_bf16_fwd_kernel(
+    const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+    const __grid_constant__ CUtensorMap tv, raw16* __restrict__ out, float* __restrict__ out32,
+    float* __restrict__ lse, int S, float c, uint32_t seed, uint32_t thresh, float inv_keep) {
+  constexpr uint32_t T = tile_bytes<D>();
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t bars[2 * kStages + 1];
+  const uint32_t sq = tiles_base(smem_raw);  // [kGroups] Q tiles
+  const uint32_t kv = sq + kGroups * T;      // [kStages] x (K tile, V tile)
+  const uint32_t full = smem_u32(bars), empty = full + 8 * kStages, qbar = full + 16 * kStages;
   const int b = blockIdx.y;
-  const long long base = static_cast<long long>(b) * S * D;
-  const int warp = threadIdx.x / 32, g = (threadIdx.x % 32) / 4, t = threadIdx.x % 4;
   const int n_tiles = (S + kTile - 1) / kTile;
-
-  stage_rows<D>(ks, k + base, 0, S);
-  stage_rows<D>(vs, v + base, 0, S);
-  cp_async_commit();
-
-  // this thread's query rows; Q as A fragments, straight from device memory
-  const int row0 = blockIdx.x * kTile + warp * 16 + g;
-  const int row1 = row0 + 8;
-  uint32_t qa[KD][4];
-#pragma unroll
-  for (int c = 0; c < KD; ++c) {
-    const int d = 16 * c + 2 * t;
-    const raw16* q0 = q + base + static_cast<long long>(row0) * D + d;
-    const raw16* q1 = q0 + 8 * D;
-    qa[c][0] = row0 < S ? __ldg(reinterpret_cast<const unsigned int*>(q0)) : 0u;
-    qa[c][1] = row1 < S ? __ldg(reinterpret_cast<const unsigned int*>(q1)) : 0u;
-    qa[c][2] = row0 < S ? __ldg(reinterpret_cast<const unsigned int*>(q0 + 8)) : 0u;
-    qa[c][3] = row1 < S ? __ldg(reinterpret_cast<const unsigned int*>(q1 + 8)) : 0u;
+  const int block_row = blockIdx.x * kTile * kGroups;
+  const int groups = active_groups(S, block_row);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      bar_init(full + 8 * s, 1);
+      bar_init(empty + 8 * s, 128 * groups);
+    }
+    bar_init(qbar, 1);
+    fence_barrier_init();
   }
-  const float qscale = scale * kLog2e;
-  const bool dropout = thresh != 0u;
-  const uint32_t stream = hash_stream(seed, b);
-  const uint32_t h0 = static_cast<uint32_t>(row0) * kRowMul + stream;
-  const uint32_t h1 = static_cast<uint32_t>(row1) * kRowMul + stream;
+  __syncthreads();
 
-  float o[ND][4];
-  zero(o);
-  float m0 = -CUDART_INF_F, m1 = -CUDART_INF_F;  // running maxima of rows g and g + 8 (log2 units)
-  float l0 = 0.0f, l1 = 0.0f;                    // this thread's part of the running sums
-
-  for (int it = 0; it < n_tiles; ++it) {
-    const int stage = it & 1;
-    if (it + 1 < n_tiles) {
-      stage_rows<D>(ks + (stage ^ 1) * kTile * P, k + base, (it + 1) * kTile, S);
-      stage_rows<D>(vs + (stage ^ 1) * kTile * P, v + base, (it + 1) * kTile, S);
-    }
-    cp_async_commit();
-    cp_async_wait_one();
-    __syncthreads();
-    const raw16* kt = ks + stage * kTile * P;
-    const raw16* vt = vs + stage * kTile * P;
-    const int k0 = it * kTile;
-
-    // S = Q K^T for 16 rows x 64 keys, one bf16 pass, then scaled in float32
-    float s[kCols][4];
-    zero(s);
-#pragma unroll
-    for (int c = 0; c < KD; ++c) {
-#pragma unroll
-      for (int n = 0; n < kCols; ++n) {
-        uint32_t b0, b1;
-        load_b_rows<D>(b0, b1, kt, 8 * n, 16 * c, g, t);
-        mma_bf16(s[n], qa[c], b0, b1);
+  if (threadIdx.x >= kConsumers) {  // the producer warpgroup: one thread issues every copy
+    setmaxnreg_dec<kProducerRegs>();
+    if (threadIdx.x == kConsumers) {
+      bar_expect(qbar, groups * T);
+      for (int g = 0; g < groups; ++g) load_tile<D>(sq + g * T, &tq, qbar, block_row + g * kTile, b);
+      for (int j = 0; j < n_tiles; ++j) {
+        const int s = j % kStages;
+        if (j >= kStages) bar_wait(empty + 8 * s, (j / kStages - 1) & 1);
+        bar_expect(full + 8 * s, 2 * T);
+        load_tile<D>(kv + s * 2 * T, &tk, full + 8 * s, j * kTile, b);
+        load_tile<D>(kv + s * 2 * T + T, &tv, full + 8 * s, j * kTile, b);
       }
     }
-    scale_all(s, qscale);
-    if (k0 + kTile > S) {  // the ragged key tail
-#pragma unroll
-      for (int n = 0; n < kCols; ++n) {
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          if (k0 + 8 * n + 2 * t + (j & 1) >= S) s[n][j] = -CUDART_INF_F;
-        }
-      }
-    }
-
-    // online softmax; the first tile holds key 0, so the maxima are finite from here on
-    float mx0 = m0, mx1 = m1;
-#pragma unroll
-    for (int n = 0; n < kCols; ++n) {
-      mx0 = fmaxf(mx0, fmaxf(s[n][0], s[n][1]));
-      mx1 = fmaxf(mx1, fmaxf(s[n][2], s[n][3]));
-    }
-    mx0 = quad_max(mx0);
-    mx1 = quad_max(mx1);
-    const float c0 = exp2f(m0 - mx0), c1 = exp2f(m1 - mx1);
-    m0 = mx0;
-    m1 = mx1;
-    l0 *= c0;
-    l1 *= c1;
-#pragma unroll
-    for (int n = 0; n < kCols; ++n) {
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float p = exp2f(s[n][j] - (j < 2 ? m0 : m1));
-        if (j < 2) l0 += p; else l1 += p;  // every key counts, dropped or not
-        float pd = p;
-        if (dropout) {
-          const uint32_t kj = static_cast<uint32_t>(k0 + 8 * n + 2 * t + (j & 1));
-          pd = fmix32((j < 2 ? h0 : h1) + kj * kColMul) >= thresh ? p * inv_keep : 0.0f;
-        }
-        s[n][j] = pd;
-      }
-    }
-
-    // O = O * correction + P V, P split in two bf16 parts, its 64 keys in 4 steps of 16
-    float pv[ND][4];
-    zero(pv);
-#pragma unroll
-    for (int j = 0; j < kCols / 2; ++j) {
-      FragA2 pa;
-      acc_to_a(pa, s[2 * j], s[2 * j + 1]);
-#pragma unroll
-      for (int c = 0; c < ND; ++c) {
-        uint32_t b0, b1;
-        load_b_cols<D>(b0, b1, vt, 16 * j, 8 * c, g, t);
-        mma_split(pv[c], pa, b0, b1);
-      }
-    }
-#pragma unroll
-    for (int c = 0; c < ND; ++c) {
-      o[c][0] = fmaf(o[c][0], c0, pv[c][0]);
-      o[c][1] = fmaf(o[c][1], c0, pv[c][1]);
-      o[c][2] = fmaf(o[c][2], c1, pv[c][2]);
-      o[c][3] = fmaf(o[c][3], c1, pv[c][3]);
-    }
-    __syncthreads();
+    return;
   }
 
-  l0 = quad_sum(l0);
-  l1 = quad_sum(l1);
-  const float r0 = 1.0f / l0, r1 = 1.0f / l1;
+  setmaxnreg_inc<kConsumerRegs>();
+  const int wg = threadIdx.x / 128, warp = (threadIdx.x / 32) % 4, g = (threadIdx.x % 32) / 4, t = threadIdx.x % 4;
+  if (wg >= groups) return;
+  const int row0 = block_row + wg * kTile + warp * 16 + g, row1 = row0 + 8;
+  const uint32_t my_q = sq + wg * T;
+  const uint32_t key_t = hash_stream(seed, b) + static_cast<uint32_t>(2 * t) * kColMul;
+  FwdRows<D> r;
+  zero(r.o);
+  zero(r.part);
+  r.m0 = r.m1 = -CUDART_INF_F;
+  r.l0 = r.l1 = 0.0f;
+  r.h0 = static_cast<uint32_t>(row0) * kRowMul + key_t;
+  r.h1 = static_cast<uint32_t>(row1) * kRowMul + key_t;
+
+  float sa[8][4], sb[8][4];
+  bar_wait(qbar, 0);
+  bar_wait(full, 0);
+  issue_scores<D>(sa, my_q, kv);
+  wgmma_wait<0>();
+  fence_acc(sa);
+  for (int j = 0; j < n_tiles; j += 2) {  // two tiles a turn, the score buffers swapping roles
+    fwd_step<D, kDrop>(r, sa, sb, j, n_tiles, S, c, thresh, my_q, kv, full, empty, t);
+    if (j + 1 < n_tiles) fwd_step<D, kDrop>(r, sb, sa, j + 1, n_tiles, S, c, thresh, my_q, kv, full, empty, t);
+  }
+
+  const float l0 = quad_sum(r.l0), l1 = quad_sum(r.l1);
+  const float s0 = inv_keep / l0, s1 = inv_keep / l1;
+  const long long base = static_cast<long long>(b) * S * D;
 #pragma unroll
-  for (int c = 0; c < ND; ++c) {
-    const int d = 8 * c + 2 * t;
-    if (row0 < S) store_pair(out, out32, base + static_cast<long long>(row0) * D + d, o[c][0] * r0, o[c][1] * r0);
-    if (row1 < S) store_pair(out, out32, base + static_cast<long long>(row1) * D + d, o[c][2] * r1, o[c][3] * r1);
+  for (int n = 0; n < D / 8; ++n) {
+    const int d = 8 * n + 2 * t;
+    if (row0 < S) store_pair(out, out32, base + static_cast<long long>(row0) * D + d, r.o[n][0] * s0, r.o[n][1] * s0);
+    if (row1 < S) store_pair(out, out32, base + static_cast<long long>(row1) * D + d, r.o[n][2] * s1, r.o[n][3] * s1);
   }
   if (lse != nullptr && t == 0) {
-    if (row0 < S) lse[static_cast<long long>(b) * S + row0] = (m0 + log2f(l0)) * kLn2;
-    if (row1 < S) lse[static_cast<long long>(b) * S + row1] = (m1 + log2f(l1)) * kLn2;
+    if (row0 < S) lse[static_cast<long long>(b) * S + row0] = (r.m0 * c + log2f(l0)) * kLn2;
+    if (row1 < S) lse[static_cast<long long>(b) * S + row1] = (r.m1 * c + log2f(l1)) * kLn2;
   }
 }
 
-// delta[b, i] = sum_d dO[b, i, d] * O[b, i, d], dO in bf16 and the forward's float32 O; one thread per row.
+// Per row of scan b, padded to Sp = padded_rows(S) rows with zeros: lse2 = lse * log2(e) and delta =
+// sum_d dO * O (dO in bf16, the forward's float32 O), into scratch [2][B][Sp]. One thread a row.
+template <int D>
 __global__ void attention_bf16_bwd_delta(const float* __restrict__ o, const raw16* __restrict__ dout,
-                                         float* __restrict__ delta, long long rows, int D) {
-  const long long r = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (r >= rows) return;
-  float s = 0.0f;
-  for (int d = 0; d < D; ++d) s = fmaf(bf16_to_float(__ldg(dout + r * D + d)), __ldg(o + r * D + d), s);
-  delta[r] = s;
+                                         const float* __restrict__ lse, float* __restrict__ scratch, int B, int S) {
+  const int Sp = padded_rows(S);
+  const long long idx = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (idx >= static_cast<long long>(B) * Sp) return;
+  const int b = static_cast<int>(idx / Sp), i = static_cast<int>(idx % Sp);
+  float l2 = 0.0f, s = 0.0f;
+  if (i < S) {
+    const long long r = static_cast<long long>(b) * S + i;
+    const uint4* dv = reinterpret_cast<const uint4*>(dout + r * D);
+    const float4* ov = reinterpret_cast<const float4*>(o + r * D);
+#pragma unroll
+    for (int c = 0; c < D / 8; ++c) {
+      const uint4 w = __ldg(dv + c);
+      const float4 a = __ldg(ov + 2 * c), bq = __ldg(ov + 2 * c + 1);
+      const uint32_t ws[4] = {w.x, w.y, w.z, w.w};
+      const float os[8] = {a.x, a.y, a.z, a.w, bq.x, bq.y, bq.z, bq.w};
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s = fmaf(__uint_as_float(ws[e] << 16), os[2 * e], s);
+        s = fmaf(__uint_as_float(ws[e] & 0xFFFF0000u), os[2 * e + 1], s);
+      }
+    }
+    l2 = __ldg(lse + r) * kLog2e;
+  }
+  scratch[idx] = l2;
+  scratch[static_cast<long long>(B) * Sp + idx] = s;
 }
 
-template <int D>
-constexpr int bwd_smem_bytes() {  // two fixed tiles and two streamed tiles in two stages (bf16), two streamed vectors
-  return (2 * kTile * pitch<D>() + 2 * 2 * kTile * pitch<D>()) * 2 + 2 * 2 * kTile * 4;
-}
+constexpr uint32_t kVecBytes = kTile * 4;  // a tile's lse2 or delta
 
-// dK and dV for 64 keys per block (16 per warp), walking all queries in tiles of 64.
+// a stage of the dK/dV pass: Q and dO tiles, then lse2[64] and delta[64] in a kAlign-sized slot
 template <int D>
-__global__ void __launch_bounds__(kThreads) attention_bf16_bwd_dkdv(
-    const raw16* __restrict__ q, const raw16* __restrict__ k, const raw16* __restrict__ v,
-    const raw16* __restrict__ dout, const float* __restrict__ lse, const float* __restrict__ delta,
-    raw16* __restrict__ dk, raw16* __restrict__ dv, int S, float scale, uint32_t seed, uint32_t thresh,
-    float inv_keep) {
-  constexpr int P = pitch<D>();
-  constexpr int KD = D / 16;
-  constexpr int ND = D / 8;
-  extern __shared__ float4 smem4[];
-  raw16* ks = reinterpret_cast<raw16*>(smem4);  // [kTile][P], this block's keys
-  raw16* vs = ks + kTile * P;                   // [kTile][P]
-  raw16* qs = vs + kTile * P;                   // [2][kTile][P]
-  raw16* dos = qs + 2 * kTile * P;              // [2][kTile][P]
-  float* lse_s = reinterpret_cast<float*>(dos + 2 * kTile * P);  // [2][kTile]
-  float* delta_s = lse_s + 2 * kTile;                            // [2][kTile]
+__host__ __device__ constexpr int dkdv_stage_bytes() { return 2 * tile_bytes<D>() + kAlign; }
 
+template <int D>
+constexpr int dkdv_smem_bytes() { return 2 * kGroups * tile_bytes<D>() + kStages * dkdv_stage_bytes<D>() + kAlign; }
+
+template <int D>
+constexpr int dq_smem_bytes() { return (2 * kGroups + 2 * kStages) * tile_bytes<D>() + kAlign; }
+
+// dK and dV: each warpgroup 64 keys (rows of the transposed score tiles), walking all queries.
+template <int D, bool kDrop>
+__global__ void __launch_bounds__(kThreads, kBlocksPerSm) attention_bf16_bwd_dkdv(
+    const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+    const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tdo, const float* __restrict__ lse2,
+    const float* __restrict__ delta, raw16* __restrict__ dk, raw16* __restrict__ dv, int S, float c, float scale,
+    uint32_t seed, uint32_t thresh, float inv_keep) {
+  constexpr uint32_t T = tile_bytes<D>();
+  constexpr uint32_t kStage = dkdv_stage_bytes<D>();
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t bars[2 * kStages + 1];
+  const uint32_t skv = tiles_base(smem_raw);  // [kGroups] K tiles, [kGroups] V tiles
+  const uint32_t sst = skv + 2 * kGroups * T;  // [kStages] x (Q tile, dO tile, lse2[64], delta[64])
+  const uint8_t* sst_ptr = smem_raw + (sst - smem_u32(smem_raw));
+  const uint32_t full = smem_u32(bars), empty = full + 8 * kStages, kvbar = full + 16 * kStages;
   const int b = blockIdx.y;
-  const long long base = static_cast<long long>(b) * S * D;
-  const float* lse_b = lse + static_cast<long long>(b) * S;
-  const float* delta_b = delta + static_cast<long long>(b) * S;
-  const int warp = threadIdx.x / 32, g = (threadIdx.x % 32) / 4, t = threadIdx.x % 4;
-  const int kb0 = blockIdx.x * kTile;
-  const int w0 = warp * 16;  // this warp's first key within the block
+  const int Sp = padded_rows(S);
   const int n_tiles = (S + kTile - 1) / kTile;
+  const int block_row = blockIdx.x * kTile * kGroups;
+  const int groups = active_groups(S, block_row);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      bar_init(full + 8 * s, 1);
+      bar_init(empty + 8 * s, 128 * groups);
+    }
+    bar_init(kvbar, 1);
+    fence_barrier_init();
+  }
+  __syncthreads();
 
-  stage_rows<D>(ks, k + base, kb0, S);
-  stage_rows<D>(vs, v + base, kb0, S);
-  stage_rows<D>(qs, q + base, 0, S);
-  stage_rows<D>(dos, dout + base, 0, S);
-  stage_vector(lse_s, lse_b, 0, S);
-  stage_vector(delta_s, delta_b, 0, S);
-  cp_async_commit();
+  if (threadIdx.x >= kConsumers) {
+    setmaxnreg_dec<kProducerRegs>();
+    if (threadIdx.x == kConsumers) {
+      bar_expect(kvbar, 2 * groups * T);
+      for (int g = 0; g < groups; ++g) {
+        load_tile<D>(skv + g * T, &tk, kvbar, block_row + g * kTile, b);
+        load_tile<D>(skv + (kGroups + g) * T, &tv, kvbar, block_row + g * kTile, b);
+      }
+      const float* lse2_b = lse2 + static_cast<long long>(b) * Sp;
+      const float* delta_b = delta + static_cast<long long>(b) * Sp;
+      for (int j = 0; j < n_tiles; ++j) {
+        const int s = j % kStages;
+        const uint32_t st = sst + s * kStage;
+        if (j >= kStages) bar_wait(empty + 8 * s, (j / kStages - 1) & 1);
+        bar_expect(full + 8 * s, 2 * T + 2 * kVecBytes);
+        load_tile<D>(st, &tq, full + 8 * s, j * kTile, b);
+        load_tile<D>(st + T, &tdo, full + 8 * s, j * kTile, b);
+        bulk_load(st + 2 * T, lse2_b + j * kTile, kVecBytes, full + 8 * s);
+        bulk_load(st + 2 * T + kVecBytes, delta_b + j * kTile, kVecBytes, full + 8 * s);
+      }
+    }
+    return;
+  }
 
-  const bool dropout = thresh != 0u;
-  const uint32_t stream = hash_stream(seed, b);
-  const uint32_t key0 = static_cast<uint32_t>(kb0 + w0 + g), key1 = key0 + 8;  // rows of the transposed tiles
-  const uint32_t hk0 = key0 * kColMul + stream, hk1 = key1 * kColMul + stream;
-  const float kscale = scale * kLog2e;
+  setmaxnreg_inc<kConsumerRegs>();
+  const int wg = threadIdx.x / 128, warp = (threadIdx.x / 32) % 4, g = (threadIdx.x % 32) / 4, t = threadIdx.x % 4;
+  if (wg >= groups) return;
+  const int key0 = block_row + wg * kTile + warp * 16 + g, key1 = key0 + 8;
+  const uint32_t my_k = skv + wg * T, my_v = skv + (kGroups + wg) * T;
+  // the keep hash of (query 2t of tile 0, key): the queries are the columns here
+  const uint32_t query_t = hash_stream(seed, b) + static_cast<uint32_t>(2 * t) * kRowMul;
+  const uint32_t hk0 = static_cast<uint32_t>(key0) * kColMul + query_t;
+  const uint32_t hk1 = static_cast<uint32_t>(key1) * kColMul + query_t;
 
-  float dk_acc[ND][4], dv_acc[ND][4];
+  float dk_acc[D / 8][4], dv_acc[D / 8][4], dk_part[D / 8][4], dv_part[D / 8][4];
   zero(dk_acc);
   zero(dv_acc);
+  zero(dk_part);
+  zero(dv_part);
+  // S^T = K Q^T and dP^T = V dO^T for 64 keys x 64 queries, one bf16 pass each: tile 0's here, each
+  // next tile's in the turn of this tile's split products
+  const Turns turns{wg, kTakeTurns && groups == 2};
+  float sc[8][4], dp[8][4];
+  bar_wait(kvbar, 0);
+  bar_wait(full, 0);
+  turns.start();
+  turns.take();
+  fence_acc(sc);
+  fence_acc(dp);
+  wgmma_fence();
+  issue_score_pair<D>(sc, dp, my_k, sst, my_v, sst + T);
+  wgmma_commit();
+  turns.pass(false);
+  wgmma_wait<0>();
+  fence_acc(sc);
+  fence_acc(dp);
+  for (int j = 0; j < n_tiles; ++j) {
+    const int s = j % kStages;
+    const uint32_t st = sst + s * kStage;
 
-  for (int it = 0; it < n_tiles; ++it) {
-    const int stage = it & 1;
-    if (it + 1 < n_tiles) {
-      const int q1 = (it + 1) * kTile;
-      stage_rows<D>(qs + (stage ^ 1) * kTile * P, q + base, q1, S);
-      stage_rows<D>(dos + (stage ^ 1) * kTile * P, dout + base, q1, S);
-      stage_vector(lse_s + (stage ^ 1) * kTile, lse_b, q1, S);
-      stage_vector(delta_s + (stage ^ 1) * kTile, delta_b, q1, S);
-    }
-    cp_async_commit();
-    cp_async_wait_one();
-    __syncthreads();
-    const raw16* qt = qs + stage * kTile * P;
-    const raw16* dot = dos + stage * kTile * P;
-    const float* lt = lse_s + stage * kTile;
-    const float* dt = delta_s + stage * kTile;
-    const int q0 = it * kTile;
-
-    // S^T = K Q^T and dP^T = V dO^T for 16 keys x 64 queries, one bf16 pass each
-    float s[kCols][4], dp[kCols][4];
-    zero(s);
-    zero(dp);
+    // P^T, (m o P)^T (with the keep scale left for dV's sum) and dS^T, split for the next products
+    const float* lv = reinterpret_cast<const float*>(sst_ptr + s * kStage + 2 * T);
+    const float* dl = lv + kTile;
+    const uint32_t hq0 = hk0 + static_cast<uint32_t>(j * kTile) * kRowMul;
+    const uint32_t hq1 = hk1 + static_cast<uint32_t>(j * kTile) * kRowMul;
+    uint32_t p_hi[4][4], p_lo[4][4], ds_hi[4][4], ds_lo[4][4];
 #pragma unroll
-    for (int c = 0; c < KD; ++c) {
-      uint32_t ka[4], va[4];
-      load_a<D>(ka, ks, w0, 16 * c, g, t);
-      load_a<D>(va, vs, w0, 16 * c, g, t);
+    for (int kk = 0; kk < 4; ++kk) {
+      float pm[2][4], ds[2][4];
 #pragma unroll
-      for (int n = 0; n < kCols; ++n) {
-        uint32_t b0, b1;
-        load_b_rows<D>(b0, b1, qt, 8 * n, 16 * c, g, t);
-        mma_bf16(s[n], ka, b0, b1);
-        load_b_rows<D>(b0, b1, dot, 8 * n, 16 * c, g, t);
-        mma_bf16(dp[n], va, b0, b1);
+      for (int h = 0; h < 2; ++h) {
+        const int n = 2 * kk + h;
+        const float2 l2 = *reinterpret_cast<const float2*>(lv + 8 * n + 2 * t);
+        const float2 dt = *reinterpret_cast<const float2*>(dl + 8 * n + 2 * t);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float lq = (i & 1) ? l2.y : l2.x, dq = (i & 1) ? dt.y : dt.x;
+          const float p = ex2(fmaf(sc[n][i], c, -lq));
+          if (kDrop) {
+            const uint32_t x = (i < 2 ? hq0 : hq1) + static_cast<uint32_t>(8 * n + (i & 1)) * kRowMul;
+            const bool keep = fmix32(x) >= thresh;
+            pm[h][i] = keep ? p : 0.0f;
+            ds[h][i] = p * (keep ? fmaf(dp[n][i], inv_keep, -dq) : -dq);
+          } else {
+            pm[h][i] = p;
+            ds[h][i] = p * (dp[n][i] - dq);
+          }
+        }
       }
+      acc_to_a(p_hi[kk], p_lo[kk], pm[0], pm[1]);
+      acc_to_a(ds_hi[kk], ds_lo[kk], ds[0], ds[1]);
     }
 
-    // P^T, then (m o P)^T into s and dS^T into dp; queries past S get P = 0
-#pragma unroll
-    for (int n = 0; n < kCols; ++n) {
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int col = 8 * n + 2 * t + (j & 1);
-        const int qi = q0 + col;
-        const float p = qi < S ? exp2f(s[n][j] * kscale - lt[col] * kLog2e) : 0.0f;
-        float mk = 1.0f;
-        if (dropout) mk = fmix32((j < 2 ? hk0 : hk1) + static_cast<uint32_t>(qi) * kRowMul) >= thresh ? inv_keep : 0.0f;
-        s[n][j] = p * mk;                          // the probability the forward used
-        dp[n][j] = p * (mk * dp[n][j] - dt[col]);  // softmax VJP through the mask
-      }
-    }
-
-    // dV += (m o P)^T dO, then dK += dS^T Q, the tile's 64 queries in 4 steps of 16, split A
-    float part[ND][4];
-    zero(part);
-#pragma unroll
-    for (int j = 0; j < kCols / 2; ++j) {
-      FragA2 pa;
-      acc_to_a(pa, s[2 * j], s[2 * j + 1]);
-#pragma unroll
-      for (int c = 0; c < ND; ++c) {
-        uint32_t b0, b1;
-        load_b_cols<D>(b0, b1, dot, 16 * j, 8 * c, g, t);
-        mma_split(part[c], pa, b0, b1);
-      }
-    }
-    add_to(dv_acc, part);
-    zero(part);
-#pragma unroll
-    for (int j = 0; j < kCols / 2; ++j) {
-      FragA2 dsa;
-      acc_to_a(dsa, dp[2 * j], dp[2 * j + 1]);
-#pragma unroll
-      for (int c = 0; c < ND; ++c) {
-        uint32_t b0, b1;
-        load_b_cols<D>(b0, b1, qt, 16 * j, 8 * c, g, t);
-        mma_split(part[c], dsa, b0, b1);
-      }
-    }
-    add_to(dk_acc, part);
-    __syncthreads();
+    // dV's part = (m o P)^T dO and dK's part = dS^T Q, the tile's 64 queries in 4 steps of 16, and the
+    // next tile's scores
+    const int sn = (j + 1) % kStages;
+    const uint32_t stn = sst + sn * kStage;
+    if (j + 1 < n_tiles) bar_wait(full + 8 * sn, ((j + 1) / kStages) & 1);
+    turns.take();
+    fence_acc(dv_part);
+    fence_acc(dk_part);
+    wgmma_fence();
+    issue_split<D>(dv_part, p_hi, p_lo, st + T);
+    issue_split<D>(dk_part, ds_hi, ds_lo, st);
+    if (j + 1 < n_tiles) issue_score_pair<D>(sc, dp, my_k, stn, my_v, stn + T);
+    wgmma_commit();
+    turns.pass(j + 1 == n_tiles);
+    wgmma_wait<0>();
+    fence_acc(dv_part);
+    fence_acc(dk_part);
+    fence_acc(sc);
+    fence_acc(dp);
+    bar_arrive(empty + 8 * s);
+    add_to(dv_acc, dv_part);
+    add_to(dk_acc, dk_part);
   }
 
-#pragma unroll
-  for (int c = 0; c < ND; ++c) {
-    const int d = 8 * c + 2 * t;
-    if (key0 < static_cast<uint32_t>(S)) {
-      const long long off = base + static_cast<long long>(key0) * D + d;
-      store_pair(dk, nullptr, off, dk_acc[c][0] * scale, dk_acc[c][1] * scale);
-      store_pair(dv, nullptr, off, dv_acc[c][0], dv_acc[c][1]);
-    }
-    if (key1 < static_cast<uint32_t>(S)) {
-      const long long off = base + static_cast<long long>(key1) * D + d;
-      store_pair(dk, nullptr, off, dk_acc[c][2] * scale, dk_acc[c][3] * scale);
-      store_pair(dv, nullptr, off, dv_acc[c][2], dv_acc[c][3]);
-    }
-  }
-}
-
-// dQ for 64 queries per block (16 per warp), walking all keys in tiles of 64.
-template <int D>
-__global__ void __launch_bounds__(kThreads) attention_bf16_bwd_dq(
-    const raw16* __restrict__ q, const raw16* __restrict__ k, const raw16* __restrict__ v,
-    const raw16* __restrict__ dout, const float* __restrict__ lse, const float* __restrict__ delta,
-    raw16* __restrict__ dq, int S, float scale, uint32_t seed, uint32_t thresh, float inv_keep) {
-  constexpr int P = pitch<D>();
-  constexpr int KD = D / 16;
-  constexpr int ND = D / 8;
-  extern __shared__ float4 smem4[];
-  raw16* qs = reinterpret_cast<raw16*>(smem4);  // [kTile][P], this block's queries
-  raw16* dos = qs + kTile * P;                  // [kTile][P]
-  raw16* ks = dos + kTile * P;                  // [2][kTile][P]
-  raw16* vs = ks + 2 * kTile * P;               // [2][kTile][P]
-
-  const int b = blockIdx.y;
   const long long base = static_cast<long long>(b) * S * D;
-  const int warp = threadIdx.x / 32, g = (threadIdx.x % 32) / 4, t = threadIdx.x % 4;
-  const int qb0 = blockIdx.x * kTile;
-  const int w0 = warp * 16;
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n) {
+    const int d = 8 * n + 2 * t;
+    if (key0 < S) {
+      const long long off = base + static_cast<long long>(key0) * D + d;
+      store_pair(dk, nullptr, off, dk_acc[n][0] * scale, dk_acc[n][1] * scale);
+      store_pair(dv, nullptr, off, dv_acc[n][0] * inv_keep, dv_acc[n][1] * inv_keep);
+    }
+    if (key1 < S) {
+      const long long off = base + static_cast<long long>(key1) * D + d;
+      store_pair(dk, nullptr, off, dk_acc[n][2] * scale, dk_acc[n][3] * scale);
+      store_pair(dv, nullptr, off, dv_acc[n][2] * inv_keep, dv_acc[n][3] * inv_keep);
+    }
+  }
+}
+
+// dQ: each warpgroup 64 queries, walking all keys.
+template <int D, bool kDrop>
+__global__ void __launch_bounds__(kThreads, kBlocksPerSm) attention_bf16_bwd_dq(
+    const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+    const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tdo, const float* __restrict__ lse2,
+    const float* __restrict__ delta, raw16* __restrict__ dq, int S, float c, float scale, uint32_t seed,
+    uint32_t thresh, float inv_keep) {
+  constexpr uint32_t T = tile_bytes<D>();
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t bars[2 * kStages + 1];
+  const uint32_t sqd = tiles_base(smem_raw);  // [kGroups] Q tiles, [kGroups] dO tiles
+  const uint32_t kv = sqd + 2 * kGroups * T;  // [kStages] x (K tile, V tile)
+  const uint32_t full = smem_u32(bars), empty = full + 8 * kStages, qbar = full + 16 * kStages;
+  const int b = blockIdx.y;
+  const int Sp = padded_rows(S);
   const int n_tiles = (S + kTile - 1) / kTile;
+  const int block_row = blockIdx.x * kTile * kGroups;
+  const int groups = active_groups(S, block_row);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      bar_init(full + 8 * s, 1);
+      bar_init(empty + 8 * s, 128 * groups);
+    }
+    bar_init(qbar, 1);
+    fence_barrier_init();
+  }
+  __syncthreads();
 
-  stage_rows<D>(qs, q + base, qb0, S);
-  stage_rows<D>(dos, dout + base, qb0, S);
-  stage_rows<D>(ks, k + base, 0, S);
-  stage_rows<D>(vs, v + base, 0, S);
-  cp_async_commit();
+  if (threadIdx.x >= kConsumers) {
+    setmaxnreg_dec<kProducerRegs>();
+    if (threadIdx.x == kConsumers) {
+      bar_expect(qbar, 2 * groups * T);
+      for (int g = 0; g < groups; ++g) {
+        load_tile<D>(sqd + g * T, &tq, qbar, block_row + g * kTile, b);
+        load_tile<D>(sqd + (kGroups + g) * T, &tdo, qbar, block_row + g * kTile, b);
+      }
+      for (int j = 0; j < n_tiles; ++j) {
+        const int s = j % kStages;
+        if (j >= kStages) bar_wait(empty + 8 * s, (j / kStages - 1) & 1);
+        bar_expect(full + 8 * s, 2 * T);
+        load_tile<D>(kv + s * 2 * T, &tk, full + 8 * s, j * kTile, b);
+        load_tile<D>(kv + s * 2 * T + T, &tv, full + 8 * s, j * kTile, b);
+      }
+    }
+    return;
+  }
 
-  const int row0 = qb0 + w0 + g, row1 = row0 + 8;
-  const float lse0 = row0 < S ? __ldg(lse + static_cast<long long>(b) * S + row0) * kLog2e : 0.0f;
-  const float lse1 = row1 < S ? __ldg(lse + static_cast<long long>(b) * S + row1) * kLog2e : 0.0f;
-  const float delta0 = row0 < S ? __ldg(delta + static_cast<long long>(b) * S + row0) : 0.0f;
-  const float delta1 = row1 < S ? __ldg(delta + static_cast<long long>(b) * S + row1) : 0.0f;
-  const bool dropout = thresh != 0u;
-  const uint32_t stream = hash_stream(seed, b);
-  const uint32_t h0 = static_cast<uint32_t>(row0) * kRowMul + stream;
-  const uint32_t h1 = static_cast<uint32_t>(row1) * kRowMul + stream;
-  const float qscale = scale * kLog2e;
+  setmaxnreg_inc<kConsumerRegs>();
+  const int wg = threadIdx.x / 128, warp = (threadIdx.x / 32) % 4, g = (threadIdx.x % 32) / 4, t = threadIdx.x % 4;
+  if (wg >= groups) return;
+  const int row0 = block_row + wg * kTile + warp * 16 + g, row1 = row0 + 8;
+  const uint32_t my_q = sqd + wg * T, my_do = sqd + (kGroups + wg) * T;
+  const long long rb = static_cast<long long>(b) * Sp;  // rows past S read the padding
+  const float nl0 = -__ldg(lse2 + rb + row0), nl1 = -__ldg(lse2 + rb + row1);
+  const float dl0 = __ldg(delta + rb + row0), dl1 = __ldg(delta + rb + row1);
+  const uint32_t key_t = hash_stream(seed, b) + static_cast<uint32_t>(2 * t) * kColMul;
+  const uint32_t h0 = static_cast<uint32_t>(row0) * kRowMul + key_t;
+  const uint32_t h1 = static_cast<uint32_t>(row1) * kRowMul + key_t;
 
-  float dq_acc[ND][4];
+  float dq_acc[D / 8][4], part[D / 8][4];
   zero(dq_acc);
+  zero(part);
+  // S = Q K^T and dP = dO V^T for 64 queries x 64 keys, one bf16 pass each: tile 0's here, each next
+  // tile's in the turn of this tile's split product
+  const Turns turns{wg, kTakeTurns && groups == 2};
+  float sc[8][4], dp[8][4];
+  bar_wait(qbar, 0);
+  bar_wait(full, 0);
+  turns.start();
+  turns.take();
+  fence_acc(sc);
+  fence_acc(dp);
+  wgmma_fence();
+  issue_score_pair<D>(sc, dp, my_q, kv, my_do, kv + T);
+  wgmma_commit();
+  turns.pass(false);
+  wgmma_wait<0>();
+  fence_acc(sc);
+  fence_acc(dp);
+  for (int j = 0; j < n_tiles; ++j) {
+    const int s = j % kStages;
+    const uint32_t st = kv + s * 2 * T;
 
-  for (int it = 0; it < n_tiles; ++it) {
-    const int stage = it & 1;
-    if (it + 1 < n_tiles) {
-      stage_rows<D>(ks + (stage ^ 1) * kTile * P, k + base, (it + 1) * kTile, S);
-      stage_rows<D>(vs + (stage ^ 1) * kTile * P, v + base, (it + 1) * kTile, S);
-    }
-    cp_async_commit();
-    cp_async_wait_one();
-    __syncthreads();
-    const raw16* kt = ks + stage * kTile * P;
-    const raw16* vt = vs + stage * kTile * P;
-    const int k0 = it * kTile;
-
-    // S = Q K^T and dP = dO V^T for 16 queries x 64 keys, one bf16 pass each
-    float s[kCols][4], dp[kCols][4];
-    zero(s);
-    zero(dp);
+    const int k0 = j * kTile;
+    if (k0 + kTile > S) {  // keys past S have K = 0, but their P = exp2(-lse2) need not be finite
 #pragma unroll
-    for (int c = 0; c < KD; ++c) {
-      uint32_t qa[4], doa[4];
-      load_a<D>(qa, qs, w0, 16 * c, g, t);
-      load_a<D>(doa, dos, w0, 16 * c, g, t);
+      for (int n = 0; n < 8; ++n) {
 #pragma unroll
-      for (int n = 0; n < kCols; ++n) {
-        uint32_t b0, b1;
-        load_b_rows<D>(b0, b1, kt, 8 * n, 16 * c, g, t);
-        mma_bf16(s[n], qa, b0, b1);
-        load_b_rows<D>(b0, b1, vt, 8 * n, 16 * c, g, t);
-        mma_bf16(dp[n], doa, b0, b1);
+        for (int i = 0; i < 4; ++i) {
+          if (k0 + 8 * n + 2 * t + (i & 1) >= S) sc[n][i] = -CUDART_INF_F;
+        }
       }
     }
-
-    // dS into dp; keys past S get P = 0
+    const uint32_t ht0 = h0 + static_cast<uint32_t>(k0) * kColMul, ht1 = h1 + static_cast<uint32_t>(k0) * kColMul;
+    uint32_t ds_hi[4][4], ds_lo[4][4];
 #pragma unroll
-    for (int n = 0; n < kCols; ++n) {
+    for (int kk = 0; kk < 4; ++kk) {
+      float ds[2][4];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int kj = k0 + 8 * n + 2 * t + (j & 1);
-        const float p = kj < S ? exp2f(s[n][j] * qscale - (j < 2 ? lse0 : lse1)) : 0.0f;
-        float mk = 1.0f;
-        if (dropout) mk = fmix32((j < 2 ? h0 : h1) + static_cast<uint32_t>(kj) * kColMul) >= thresh ? inv_keep : 0.0f;
-        dp[n][j] = p * (mk * dp[n][j] - (j < 2 ? delta0 : delta1));
+      for (int h = 0; h < 2; ++h) {
+        const int n = 2 * kk + h;
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float p = ex2(fmaf(sc[n][i], c, i < 2 ? nl0 : nl1));
+          const float dr = i < 2 ? dl0 : dl1;
+          if (kDrop) {
+            const uint32_t x = (i < 2 ? ht0 : ht1) + static_cast<uint32_t>(8 * n + (i & 1)) * kColMul;
+            ds[h][i] = p * (fmix32(x) >= thresh ? fmaf(dp[n][i], inv_keep, -dr) : -dr);
+          } else {
+            ds[h][i] = p * (dp[n][i] - dr);
+          }
+        }
       }
+      acc_to_a(ds_hi[kk], ds_lo[kk], ds[0], ds[1]);
     }
 
-    // dQ += dS K, the tile's 64 keys in 4 steps of 16, split A
-    float part[ND][4];
-    zero(part);
-#pragma unroll
-    for (int j = 0; j < kCols / 2; ++j) {
-      FragA2 dsa;
-      acc_to_a(dsa, dp[2 * j], dp[2 * j + 1]);
-#pragma unroll
-      for (int c = 0; c < ND; ++c) {
-        uint32_t b0, b1;
-        load_b_cols<D>(b0, b1, kt, 16 * j, 8 * c, g, t);
-        mma_split(part[c], dsa, b0, b1);
-      }
-    }
+    // dQ's part = dS K, the tile's 64 keys in 4 steps of 16, and the next tile's scores
+    const uint32_t stn = kv + (j + 1) % kStages * 2 * T;
+    if (j + 1 < n_tiles) bar_wait(full + 8 * ((j + 1) % kStages), ((j + 1) / kStages) & 1);
+    turns.take();
+    fence_acc(part);
+    wgmma_fence();
+    issue_split<D>(part, ds_hi, ds_lo, st);
+    if (j + 1 < n_tiles) issue_score_pair<D>(sc, dp, my_q, stn, my_do, stn + T);
+    wgmma_commit();
+    turns.pass(j + 1 == n_tiles);
+    wgmma_wait<0>();
+    fence_acc(part);
+    fence_acc(sc);
+    fence_acc(dp);
+    bar_arrive(empty + 8 * s);
     add_to(dq_acc, part);
-    __syncthreads();
   }
 
+  const long long base = static_cast<long long>(b) * S * D;
 #pragma unroll
-  for (int c = 0; c < ND; ++c) {
-    const int d = 8 * c + 2 * t;
-    if (row0 < S) store_pair(dq, nullptr, base + static_cast<long long>(row0) * D + d, dq_acc[c][0] * scale,
-                             dq_acc[c][1] * scale);
-    if (row1 < S) store_pair(dq, nullptr, base + static_cast<long long>(row1) * D + d, dq_acc[c][2] * scale,
-                             dq_acc[c][3] * scale);
+  for (int n = 0; n < D / 8; ++n) {
+    const int d = 8 * n + 2 * t;
+    if (row0 < S) store_pair(dq, nullptr, base + static_cast<long long>(row0) * D + d, dq_acc[n][0] * scale,
+                             dq_acc[n][1] * scale);
+    if (row1 < S) store_pair(dq, nullptr, base + static_cast<long long>(row1) * D + d, dq_acc[n][2] * scale,
+                             dq_acc[n][3] * scale);
   }
 }
 
-// Sets a kernel's dynamic shared memory limit and launches it; returns the first cudaError_t.
-template <typename Kernel, typename... Args>
-int launch(Kernel kernel, dim3 grid, int smem, cudaStream_t stream, Args... args) {
-  int err = static_cast<int>(cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem));
-  if (err != 0) return err;
-  kernel<<<grid, kThreads, smem, stream>>>(args...);
-  return static_cast<int>(cudaGetLastError());
+// ---- host side ----
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled, looked up through the CUDA runtime's entry-point query: the library links no libcuda.
+EncodeTiled find_encode_tiled() {
+  void* fn = nullptr;
+  cudaDriverEntryPointQueryResult found = cudaDriverEntryPointSymbolNotFound;
+#if CUDART_VERSION >= 12050
+  const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &fn, 12000, cudaEnableDefault, &found);
+#else
+  const cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &found);
+#endif
+  return err == cudaSuccess && found == cudaDriverEntryPointSuccess ? reinterpret_cast<EncodeTiled>(fn) : nullptr;
 }
+
+// A [B, S, D] bf16 tensor as a 3-D map over (D, S, B): boxes of 16 columns x 64 rows of one scan,
+// 32-byte swizzle, zeros outside; returns a cudaError_t code.
+int tile_map(CUtensorMap* map, const void* base, int B, int S, int D) {
+  static const EncodeTiled encode = find_encode_tiled();
+  if (encode == nullptr) return static_cast<int>(cudaErrorSymbolNotFound);
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(S), static_cast<cuuint64_t>(B)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(D) * 2, static_cast<cuuint64_t>(S) * D * 2};
+  const cuuint32_t box[3] = {kBoxCols, kTile, 1};
+  const cuuint32_t steps[3] = {1, 1, 1};
+  const CUresult res = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims, strides, box,
+                              steps, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_32B,
+                              CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return res == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
+}
+
+dim3 grid_of(int B, int S) { return dim3((S + kTile * kGroups - 1) / (kTile * kGroups), B); }
 
 template <int D>
-int launch_fwd(const raw16* q, const raw16* k, const raw16* v, raw16* o, float* o32, float* lse, int B, int S,
-               float scale, uint32_t seed, uint32_t thresh, float inv_keep, cudaStream_t stream) {
-  const dim3 grid((S + kTile - 1) / kTile, B);
-  return launch(attention_bf16_fwd_kernel<D>, grid, fwd_smem_bytes<D>(), stream, q, k, v, o, o32, lse, S, scale, seed,
+int launch_fwd(const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorMap& tv, raw16* o, float* o32, float* lse,
+               int B, int S, float scale, uint32_t seed, uint32_t thresh, float inv_keep, cudaStream_t stream) {
+  const float c = scale * kLog2e;
+  auto kernel = thresh != 0u ? attention_bf16_fwd_kernel<D, true> : attention_bf16_fwd_kernel<D, false>;
+  return launch(kernel, grid_of(B, S), kThreads, fwd_smem_bytes<D>(), stream, tq, tk, tv, o, o32, lse, S, c, seed,
                 thresh, inv_keep);
 }
 
 template <int D>
-int launch_bwd(const raw16* q, const raw16* k, const raw16* v, const float* o32, const raw16* dout, const float* lse,
-               float* delta, raw16* dq, raw16* dk, raw16* dv, int B, int S, float scale, uint32_t seed,
-               uint32_t thresh, float inv_keep, cudaStream_t stream) {
-  const long long rows = static_cast<long long>(B) * S;
-  attention_bf16_bwd_delta<<<static_cast<unsigned>((rows + 255) / 256), 256, 0, stream>>>(o32, dout, delta, rows, D);
+int launch_bwd(const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorMap& tv, const CUtensorMap& tdo,
+               const float* o32, const raw16* dout, const float* lse, float* scratch, raw16* dq, raw16* dk, raw16* dv,
+               int B, int S, float scale, uint32_t seed, uint32_t thresh, float inv_keep, cudaStream_t stream) {
+  const long long rows = static_cast<long long>(B) * padded_rows(S);
+  attention_bf16_bwd_delta<D><<<static_cast<unsigned>((rows + 255) / 256), 256, 0, stream>>>(o32, dout, lse, scratch,
+                                                                                             B, S);
   int err = static_cast<int>(cudaGetLastError());
   if (err != 0) return err;
-  const dim3 grid((S + kTile - 1) / kTile, B);
-  err = launch(attention_bf16_bwd_dkdv<D>, grid, bwd_smem_bytes<D>(), stream, q, k, v, dout, lse,
-               static_cast<const float*>(delta), dk, dv, S, scale, seed, thresh, inv_keep);
+  const float* lse2 = scratch;
+  const float* delta = scratch + rows;
+  const float c = scale * kLog2e;
+  const bool drop = thresh != 0u;
+  auto dkdv = drop ? attention_bf16_bwd_dkdv<D, true> : attention_bf16_bwd_dkdv<D, false>;
+  err = launch(dkdv, grid_of(B, S), kThreads, dkdv_smem_bytes<D>(), stream, tq, tk, tv, tdo, lse2, delta, dk, dv, S,
+               c, scale, seed, thresh, inv_keep);
   if (err != 0) return err;
-  return launch(attention_bf16_bwd_dq<D>, grid, bwd_smem_bytes<D>(), stream, q, k, v, dout, lse,
-                static_cast<const float*>(delta), dq, S, scale, seed, thresh, inv_keep);
+  auto dqk = drop ? attention_bf16_bwd_dq<D, true> : attention_bf16_bwd_dq<D, false>;
+  return launch(dqk, grid_of(B, S), kThreads, dq_smem_bytes<D>(), stream, tq, tk, tv, tdo, lse2, delta, dq, S, c,
+                scale, seed, thresh, inv_keep);
 }
+
+bool built_for(int D) { return D == 16 || D == 32 || D == 48 || D == 64; }
 
 }  // namespace
 
 // Returns a cudaError_t code; cudaErrorInvalidValue for a head width it was not built for.
-// q, k, v, out: [B, S, D] bf16. out32 ([B, S, D] float32, the output before its rounding) and lse
-// ([B, S] float32) may be null (inference). thresh = 0 turns dropout off.
+// q, k, v, out: [B, S, D] bf16, 16-byte aligned. out32 ([B, S, D] float32, the output before its
+// rounding) and lse ([B, S] float32) may be null (inference). thresh = 0 turns dropout off.
 extern "C" int self_attention_bf16_fwd(const void* q, const void* k, const void* v, void* out, void* out32, void* lse,
                                        int B, int S, int D, float scale, unsigned int seed, unsigned int thresh,
                                        float inv_keep, void* stream) {
   if (B == 0 || S == 0) return static_cast<int>(cudaGetLastError());
-  const auto* qh = static_cast<const raw16*>(q);
-  const auto* kh = static_cast<const raw16*>(k);
-  const auto* vh = static_cast<const raw16*>(v);
+  if (!built_for(D)) return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap tq, tk, tv;
+  int err = tile_map(&tq, q, B, S, D);
+  if (err == 0) err = tile_map(&tk, k, B, S, D);
+  if (err == 0) err = tile_map(&tv, v, B, S, D);
+  if (err != 0) return err;
   auto* oh = static_cast<raw16*>(out);
   auto* of = static_cast<float*>(out32);
   auto* lf = static_cast<float*>(lse);
   auto st = static_cast<cudaStream_t>(stream);
   switch (D) {
-    case 16: return launch_fwd<16>(qh, kh, vh, oh, of, lf, B, S, scale, seed, thresh, inv_keep, st);
-    case 32: return launch_fwd<32>(qh, kh, vh, oh, of, lf, B, S, scale, seed, thresh, inv_keep, st);
-    case 48: return launch_fwd<48>(qh, kh, vh, oh, of, lf, B, S, scale, seed, thresh, inv_keep, st);
-    case 64: return launch_fwd<64>(qh, kh, vh, oh, of, lf, B, S, scale, seed, thresh, inv_keep, st);
-    default: return static_cast<int>(cudaErrorInvalidValue);
+    case 16: return launch_fwd<16>(tq, tk, tv, oh, of, lf, B, S, scale, seed, thresh, inv_keep, st);
+    case 32: return launch_fwd<32>(tq, tk, tv, oh, of, lf, B, S, scale, seed, thresh, inv_keep, st);
+    case 48: return launch_fwd<48>(tq, tk, tv, oh, of, lf, B, S, scale, seed, thresh, inv_keep, st);
+    default: return launch_fwd<64>(tq, tk, tv, oh, of, lf, B, S, scale, seed, thresh, inv_keep, st);
   }
 }
 
-// out32 and lse are the forward's float32 outputs; delta is [B, S] float32 scratch; dq, dk, dv are
-// [B, S, D] bf16 outputs.
+// The float32 scratch the backward takes: [2, B, padded S] (lse * log2(e) and delta per row).
+extern "C" long long self_attention_bf16_bwd_scratch(int B, int S) { return 2LL * B * padded_rows(S); }
+
+// out32 and lse are the forward's float32 outputs; scratch is self_attention_bf16_bwd_scratch(B, S)
+// floats, 16-byte aligned; dq, dk, dv are [B, S, D] bf16 outputs.
 extern "C" int self_attention_bf16_bwd(const void* q, const void* k, const void* v, const void* out32,
-                                       const void* dout, const void* lse, void* delta, void* dq, void* dk, void* dv,
+                                       const void* dout, const void* lse, void* scratch, void* dq, void* dk, void* dv,
                                        int B, int S, int D, float scale, unsigned int seed, unsigned int thresh,
                                        float inv_keep, void* stream) {
   if (B == 0 || S == 0) return static_cast<int>(cudaGetLastError());
-  const auto* qh = static_cast<const raw16*>(q);
-  const auto* kh = static_cast<const raw16*>(k);
-  const auto* vh = static_cast<const raw16*>(v);
+  if (!built_for(D)) return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap tq, tk, tv, tdo;
+  int err = tile_map(&tq, q, B, S, D);
+  if (err == 0) err = tile_map(&tk, k, B, S, D);
+  if (err == 0) err = tile_map(&tv, v, B, S, D);
+  if (err == 0) err = tile_map(&tdo, dout, B, S, D);
+  if (err != 0) return err;
   const auto* of = static_cast<const float*>(out32);
   const auto* doh = static_cast<const raw16*>(dout);
   const auto* lf = static_cast<const float*>(lse);
-  auto* df = static_cast<float*>(delta);
+  auto* sf = static_cast<float*>(scratch);
   auto* dqh = static_cast<raw16*>(dq);
   auto* dkh = static_cast<raw16*>(dk);
   auto* dvh = static_cast<raw16*>(dv);
   auto st = static_cast<cudaStream_t>(stream);
   switch (D) {
-    case 16: return launch_bwd<16>(qh, kh, vh, of, doh, lf, df, dqh, dkh, dvh, B, S, scale, seed, thresh, inv_keep, st);
-    case 32: return launch_bwd<32>(qh, kh, vh, of, doh, lf, df, dqh, dkh, dvh, B, S, scale, seed, thresh, inv_keep, st);
-    case 48: return launch_bwd<48>(qh, kh, vh, of, doh, lf, df, dqh, dkh, dvh, B, S, scale, seed, thresh, inv_keep, st);
-    case 64: return launch_bwd<64>(qh, kh, vh, of, doh, lf, df, dqh, dkh, dvh, B, S, scale, seed, thresh, inv_keep, st);
-    default: return static_cast<int>(cudaErrorInvalidValue);
+    case 16: return launch_bwd<16>(tq, tk, tv, tdo, of, doh, lf, sf, dqh, dkh, dvh, B, S, scale, seed, thresh, inv_keep, st);
+    case 32: return launch_bwd<32>(tq, tk, tv, tdo, of, doh, lf, sf, dqh, dkh, dvh, B, S, scale, seed, thresh, inv_keep, st);
+    case 48: return launch_bwd<48>(tq, tk, tv, tdo, of, doh, lf, sf, dqh, dkh, dvh, B, S, scale, seed, thresh, inv_keep, st);
+    default: return launch_bwd<64>(tq, tk, tv, tdo, of, doh, lf, sf, dqh, dkh, dvh, B, S, scale, seed, thresh, inv_keep, st);
   }
 }

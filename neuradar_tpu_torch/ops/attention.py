@@ -17,12 +17,12 @@ drop the same entries, and the forward and backward agree by construction.
 seed's at b0 + b, so a batch cut in groups draws the masks of the whole.
 
 Inputs are float32 or bfloat16, one dtype for all. On the card a bfloat16
-call launches the kernels of ``csrc/attention_bf16.cu`` (bf16 operands on the
-tensor cores, every sum in float32, as the JAX package's kernel computes at
-bf16) through ``self_attention_bf16_fwd`` / ``_bwd``, which count their own
-launches; a float32 call the float32 kernels. The plain versions compute in
-float32 and return the input dtype. The backward takes the forward's output
-in float32 (for bf16, the output before its rounding: ``return_out32``).
+call launches the kernels of ``csrc/attention_bf16.cu`` (warpgroup MMAs on bf16
+tiles that the TMA copies, every sum in float32, as the JAX package's kernel
+computes at bf16) through ``self_attention_bf16_fwd`` / ``_bwd``, which count
+their own launches; a float32 call the float32 kernels. The plain versions
+compute in float32 and return the input dtype. The backward takes the forward's
+output in float32 (for bf16, the output before its rounding: ``return_out32``).
 """
 
 from __future__ import annotations
@@ -204,27 +204,51 @@ def self_attention_bwd(q, k, v, out, dout, lse, dropout_rate: float = 0.0,
 self_attention_bwd.launches = 0
 
 
-def self_attention_bf16_fwd(q, k, v, dropout_rate: float = 0.0, seed: int = 0, return_lse: bool = False,
-                            return_out32: bool = False):
-    """K2 forward at bfloat16 on the card (``csrc/attention_bf16.cu``); as ``self_attention_fwd``."""
-    _check("self_attention_bf16_fwd", (q, k, v), q.shape)
-    if q.dtype != torch.bfloat16:
-        raise TypeError(f"self_attention_bf16_fwd takes bfloat16, got {q.dtype}")
+def launch_bf16_fwd(lib, q, k, v, dropout_rate: float, seed: int, return_lse: bool, return_out32: bool):
+    """The bf16 forward kernel of ``lib`` (the port's library, or another build of
+    csrc/attention_bf16.cu's C interface) on checked CUDA tensors: (out, lse or None, out32 or None)."""
     B, S, D = q.shape
     seed32, thresh, inv_keep = _dropout_args(seed, dropout_rate)
     out = torch.empty_like(q)
     lse = torch.empty((B, S), dtype=torch.float32, device=q.device) if return_lse else None
     out32 = torch.empty((B, S, D), dtype=torch.float32, device=q.device) if return_out32 else None
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    code = build.load().self_attention_bf16_fwd(
+    code = lib.self_attention_bf16_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), out32.data_ptr() if out32 is not None else None,
         lse.data_ptr() if lse is not None else None, B, S, D, D**-0.5, seed32, thresh, inv_keep, stream)
     build.check(code, "self_attention_bf16_fwd")
+    return out, lse, out32
+
+
+def self_attention_bf16_fwd(q, k, v, dropout_rate: float = 0.0, seed: int = 0, return_lse: bool = False,
+                            return_out32: bool = False):
+    """K2 forward at bfloat16 on the card (``csrc/attention_bf16.cu``); as ``self_attention_fwd``."""
+    _check("self_attention_bf16_fwd", (q, k, v), q.shape)
+    if q.dtype != torch.bfloat16:
+        raise TypeError(f"self_attention_bf16_fwd takes bfloat16, got {q.dtype}")
+    out, lse, out32 = launch_bf16_fwd(build.load(), q, k, v, dropout_rate, seed, return_lse, return_out32)
     self_attention_bf16_fwd.launches += 1
     return _results(out, lse, out32, return_out32)
 
 
 self_attention_bf16_fwd.launches = 0
+
+
+def launch_bf16_bwd(lib, q, k, v, out32, dout, lse, dropout_rate: float, seed: int):
+    """The bf16 backward kernels of ``lib`` (as ``launch_bf16_fwd``) on checked CUDA tensors:
+    (dq, dk, dv). Their float32 scratch (lse in log2 units and delta, per padded row) is sized by
+    the port's library, which holds for an earlier build of the source too (it took [B, S])."""
+    B, S, D = q.shape
+    seed32, thresh, inv_keep = _dropout_args(seed, dropout_rate)
+    scratch = torch.empty(build.load().self_attention_bf16_bwd_scratch(B, S), dtype=torch.float32, device=q.device)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    code = lib.self_attention_bf16_bwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out32.data_ptr(), dout.data_ptr(), lse.data_ptr(),
+        scratch.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, S, D, D**-0.5, seed32, thresh,
+        inv_keep, stream)
+    build.check(code, "self_attention_bf16_bwd")
+    return dq, dk, dv
 
 
 def self_attention_bf16_bwd(q, k, v, out32, dout, lse, dropout_rate: float = 0.0, seed: int = 0):
@@ -236,17 +260,9 @@ def self_attention_bf16_bwd(q, k, v, out32, dout, lse, dropout_rate: float = 0.0
     B, S, D = q.shape
     _check_f32("self_attention_bf16_bwd: out32", out32, (B, S, D), q.device)
     _check_f32("self_attention_bf16_bwd: lse", lse, (B, S), q.device)
-    seed32, thresh, inv_keep = _dropout_args(seed, dropout_rate)
-    delta = torch.empty((B, S), dtype=torch.float32, device=q.device)
-    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    code = build.load().self_attention_bf16_bwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out32.data_ptr(), dout.data_ptr(), lse.data_ptr(),
-        delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, S, D, D**-0.5, seed32, thresh, inv_keep,
-        stream)
-    build.check(code, "self_attention_bf16_bwd")
+    grads = launch_bf16_bwd(build.load(), q, k, v, out32, dout, lse, dropout_rate, seed)
     self_attention_bf16_bwd.launches += 1
-    return dq, dk, dv
+    return grads
 
 
 self_attention_bf16_bwd.launches = 0

@@ -5,8 +5,9 @@ repository root, at first use, and bound with ctypes: each ``extern "C"``
 launcher takes device pointers and the stream as ``c_void_p`` and returns a
 cudaError_t code. Each source is compiled to an object by its own nvcc, all
 started together, and the objects are linked into one library. The
-library's file name carries a hash of the sources, so an edited source is
-rebuilt and a stale library is never loaded.
+library's file name carries a hash of the sources and the headers they
+include, so an edited source or header is rebuilt and a stale library is
+never loaded.
 """
 
 from __future__ import annotations
@@ -22,6 +23,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 SOURCES = ("composite_sky.cu", "attention.cu", "attention_bf16.cu", "gather.cu")
+HEADERS = ("attention_common.cuh",)
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 COMPILE_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC")
 
@@ -45,9 +47,12 @@ _SIGNATURES = {
     "self_attention_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _U, _U, _F, _P],
     # q, k, v, out, out32, lse, B, S, D, scale, seed, thresh, inv_keep, stream (bf16 q, k, v, out)
     "self_attention_bf16_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _U, _U, _F, _P],
-    # q, k, v, out32, dout, lse, delta, dq, dk, dv, B, S, D, scale, seed, thresh, inv_keep, stream
+    # q, k, v, out32, dout, lse, scratch, dq, dk, dv, B, S, D, scale, seed, thresh, inv_keep, stream
     "self_attention_bf16_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _U, _U, _F, _P],
+    # B, S -> the float32 scratch self_attention_bf16_bwd takes
+    "self_attention_bf16_bwd_scratch": [_I, _I],
 }
+_RESTYPES = {"self_attention_bf16_bwd_scratch": ctypes.c_longlong}
 
 _lib = None
 
@@ -65,7 +70,7 @@ def _nvcc() -> str:
 
 def library_path() -> Path:
     digest = hashlib.sha256()
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         digest.update((CSRC / name).read_bytes())
     digest.update(" ".join(COMPILE_FLAGS).encode())
     return BUILD_DIR / f"libneuradar_kernels_{digest.hexdigest()[:16]}.so"
@@ -92,7 +97,8 @@ def build(verbose: bool = False) -> Path:
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
         objs = [str(Path(tmp) / (Path(s).stem + ".o")) for s in SOURCES]
         ptxas = ["-Xptxas", "-v"] if verbose else []
-        logs = _run_all([[nvcc, *COMPILE_FLAGS, *ptxas, "-c", "-o", o, str(CSRC / s)] for s, o in zip(SOURCES, objs)])
+        logs = _run_all([[nvcc, *COMPILE_FLAGS, *ptxas, "-I", str(CSRC), "-c", "-o", o, str(CSRC / s)]
+                         for s, o in zip(SOURCES, objs)])
         out = str(Path(tmp) / lib.name)
         _run_all([[nvcc, *ARCH_FLAGS, "-shared", "-o", out, *objs]])
         if verbose:
@@ -106,30 +112,34 @@ def load() -> ctypes.CDLL:
     global _lib
     if _lib is None:
         lib = ctypes.CDLL(str(build()))
-        for name, argtypes in _SIGNATURES.items():
-            fn = getattr(lib, name)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
+        _bind(lib)
         _lib = lib
     return _lib
+
+
+def _bind(lib: ctypes.CDLL) -> None:
+    """The port's signatures for the launchers ``lib`` exports."""
+    for name, argtypes in _SIGNATURES.items():
+        if hasattr(lib, name):
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = _RESTYPES.get(name, ctypes.c_int)
 
 
 def build_each(sources: dict, out_dir: Path) -> dict:
     """Each source (name -> path) alone into its own library under ``out_dir`` (one nvcc each, all
     started together), loaded and bound with the port's signatures for the launchers it exports.
-    For measurements that set variants of a kernel side by side; the port loads ``load()`` only."""
+    A source may include the port's headers (``csrc/`` is on the include path). For measurements
+    that set variants of a kernel side by side; the port loads ``load()`` only."""
     out_dir.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
     paths = {name: out_dir / f"lib{name}.so" for name in sources}
-    _run_all([[nvcc, *COMPILE_FLAGS, "-shared", "-o", str(paths[name]), str(src)] for name, src in sources.items()])
+    _run_all([[nvcc, *COMPILE_FLAGS, "-I", str(CSRC), "-shared", "-o", str(paths[name]), str(src)]
+              for name, src in sources.items()])
     libs = {}
     for name, path in paths.items():
         lib = ctypes.CDLL(str(path))
-        for fn_name, argtypes in _SIGNATURES.items():
-            if hasattr(lib, fn_name):
-                fn = getattr(lib, fn_name)
-                fn.argtypes = argtypes
-                fn.restype = ctypes.c_int
+        _bind(lib)
         libs[name] = lib
     return libs
 

@@ -1,17 +1,18 @@
 """K2 at bfloat16: the numerics of ``csrc/attention_bf16.cu``, emulated on the CPU, and the kernels
 on the card.
 
-The kernel runs every S*S*D product as ``mma.sync.m16n8k16`` with bf16 operands and float32
-accumulation. Where both operands are bf16 (S = Q K^T, dP = dO V^T) that is one product, exact in
-its float32 sum up to summation order. Where one operand is float32 (P, dS) it is split into
+The kernel runs every S*S*D product on the tensor cores with bf16 operands and float32
+accumulation (warpgroup MMAs; ``tests/test_torch_attention_wgmma.py`` emulates their shared-memory
+tiles). Where both operands are bf16 (S = Q K^T, dP = dO V^T) that is one product, exact in its
+float32 sum up to summation order. Where one operand is float32 (P, dS) it is split into
 hi = bf16(x) and lo = bf16(x - hi) and multiplied in two passes. The backward's delta =
 rowsum(dO o O) is taken from the output in float32, as the forward writes it when it will be
 differentiated. These tests emulate:
 
 - the m16n8k16 fragment layouts of the PTX ISA (A: rows g, g + 8 x columns 2t, 2t + 1, 2t + 8,
   2t + 9; B: rows 2t, 2t + 1, 2t + 8, 2t + 9 of column g; the accumulator rows g, g + 8 x columns
-  2t, 2t + 1), with the index expressions of the kernel's load_a, load_b_rows, load_b_cols and
-  acc_to_a, against plain products;
+  2t, 2t + 1), which each warp of a wgmma's accumulator and register A operand repeats, with the
+  kernel's acc_to_a (score accumulators as the next product's A operand), against plain products;
 - the forward with the hi/lo split and with P rounded once, and the backward with delta from the
   float32 and from the bf16 output, against float64 on the same bf16 inputs.
 
