@@ -32,6 +32,9 @@ Phases, one line each before the final JSON line:
      dropout, against the plain version (which computes in float32 and
      rounds to bf16 once), with SDPA in bf16 with the same dropout as the
      library call and the tensor-core bound of the design's bf16 passes;
+     and the same four at the shapes of the set decoder's train path
+     (train_set: its encoder is the same transformer, so K2 gets the same
+     decode group);
   4. render: the neuradar-synthetic model at full width with seeded random
      weights renders 2 camera frames at 720 x 1296, one 16,384-ray lidar scan
      and 4 radar scans (decoded in the model's 4 groups of 1 scan, the shape of
@@ -48,12 +51,27 @@ Phases, one line each before the final JSON line:
      of 113,840 rays, then an eval loss and a camera render, both with the
      hoisted cast; step seconds, rays/s and peak memory, and K2 at bf16 must
      have launched forward and backward;
+  6b. train_set: the set radar decoder (the paper's neuradar-set model
+     settings: bf16, 8 chunks, the VGG loss, DETR's set loss, 300 queries
+     with deep supervision, dropout 0.1, radar in 4 groups), configured as
+     scripts/train.py configures neuradar-synthetic from dotted overrides,
+     trained at the preset's full batch (113,840 rays, 16 radar scans of
+     3,531 rays) for 3 steps with the auction and 1 with the host's
+     Hungarian, then an eval loss, render_radar of one scan ([300, 7]) and
+     the eval radar metrics; each step's seconds, peak memory, loss terms
+     (radar_aux_loss among them) and Hungarian host time; every parameter
+     group, query_embed among them, must have changed, and K1 and K2 at
+     bf16 must have launched forward and backward;
   7. agreement: a tiny scene rendered, and one tiny train step (loss terms and
      every gradient), through the kernels on the card against the plain
      versions on the CPU, with the same weights and the same random draws; and
      one tiny bf16 step (2 chunks, 2 radar groups, the VGG loss on) card
      against CPU, the radar association solved on one fixed cost matrix on
      both sides (a discrete choice, as in tests/test_torch_bf16_train.py);
+     and the tiny set model's train step (deep supervision, DETR's loss and
+     the multi-Bernoulli loss) card against CPU, in float32 with the host's
+     Hungarian and in bf16 with the association pinned, by the rules of
+     tests/test_torch_set_decoder.py;
   8. cli_train: the train command (scripts/train.py) on neuradar-synthetic at
      full width and batch, 6 steps with every eval cadence and checkpoints
      (all kept), then resumed from its checkpoints to step 8 (only the latest
@@ -66,7 +84,11 @@ Phases, one line each before the final JSON line:
      the card, bf16 (the dtype of the JAX curve) and then float32, must print
      LEARNING CHECK: PASS; the first- and last-quarter means of both are
      printed beside those of the JAX package's CPU curve
-     (artifacts/learning_curve_cpu_tiny_20k.json) over its first 300 steps.
+     (artifacts/learning_curve_cpu_tiny_20k.json) over its first 300 steps;
+     then 300 bf16 steps with --set-decoder and 300 with
+     --radar-assignment hungarian, each of which must PASS, the latter
+     beside the first 300 steps of the JAX package's Hungarian curve
+     (artifacts/curve_tiny_hungarian_2500.json).
 The line before the last lists every kernel as JSON; the last line is
 {"ok": true, "device": {...}}. Any failure raises, and the script exits
 non-zero without printing them.
@@ -77,6 +99,7 @@ from __future__ import annotations
 import gc
 import json
 import math
+import re
 import shutil
 import subprocess
 import sys
@@ -87,7 +110,8 @@ import torch
 import torch.nn.functional as F
 
 from neuradar_tpu_torch.configs.bench_program import bench_pipeline_config, bench_scene_outputs
-from neuradar_tpu_torch.configs.method_configs import method_configs
+from neuradar_tpu_torch.configs.cli import parse_overrides
+from neuradar_tpu_torch.configs.method_configs import get_method, method_configs
 from neuradar_tpu_torch.data.datamanager import ADDataManagerConfig
 from neuradar_tpu_torch.data.dataparsers.synthetic import SyntheticDataParser, SyntheticDataParserConfig
 from neuradar_tpu_torch.engine.optimizers import default_optimizer_groups
@@ -175,6 +199,16 @@ TINY_NFF_CHUNKS = 2
 # the radar scans the render path decodes
 RENDER_RADAR_SCANS = (0, 1, 2, 3)
 TRAIN_STEPS = 3
+# the set radar decoder's train path: the neuradar-set model settings (bf16 at 8 chunks as the
+# neuradar preset, the VGG loss, DETR's set loss) on neuradar-synthetic, as dotted overrides of the
+# train command
+SET_ARGV = ["--pipeline.model.compute_dtype", "bfloat16", "--pipeline.model.nff_chunks", "8",
+            "--pipeline.model.loss.vgg_mult", "0.05", "--pipeline.model.radar_decoder_type", "set",
+            "--pipeline.model.loss.radar_set_loss", "detr", "--pipeline.model.num_radar_queries", "300",
+            "--pipeline.model.radar_set_aux_loss", "True", "--pipeline.model.radar_transformer_dropout", "0.1",
+            "--pipeline.model.radar_decode_chunks", "4"]
+SET_AUCTION_STEPS = 3  # then one step with the host's Hungarian
+FULL_BATCH_RAYS = 113840
 
 
 def phase(label: str, /, **fields) -> None:
@@ -229,6 +263,76 @@ def _assert_all_close(got, want, tol, what):
 def _group_scans(model_config, num_scans: int) -> int:
     """The scans in one radar decode group, as the model's _decode_radar groups ``num_scans``."""
     return num_scans // radar_decode_groups(num_scans, model_config.radar_decode_chunks)
+
+
+def _bf16_path_rows(gen, device, path: str, model_config, num_scans: int, rate: float, seed: int) -> list:
+    """The kernels of a bf16 train path against their plain versions: K1 forward and backward at one of
+    the per-ray core's chunks (K1 takes float32 there), and K2 at bf16 at one radar decode group of
+    the ZOD FoV's scans (d_model 48) with dropout ``rate``."""
+    rows = []
+    k1 = {"route": "cuda", "source": "neuradar_tpu_torch/csrc/composite_sky.cu"}
+    R, S1, C = FULL_BATCH_RAYS // model_config.nff_chunks, 33, 32
+    alpha = torch.rand((R, S1), generator=gen, device=device)
+    feats = torch.randn((R, S1, C), generator=gen, device=device)
+    got = [t.double() for t in composite_sky_fwd(alpha, feats)]
+    want = composite_sky_reference(alpha.double(), feats.double())
+    _assert_all_close(got, want, K1_TOL, f"K1 fwd {path}")
+    rows.append({"name": "composite_sky_fwd", **k1, "replaces": "neuradar_tpu/ops/volumetric.py:100",
+                 "path": path, "shape": [R, S1, C], "max_abs_err": _max_err(got, want),
+                 **_times(lambda: composite_sky_fwd(alpha, feats), lambda: composite_sky_reference(alpha, feats)),
+                 **_bound(4 * (R * S1 * (C + 2) + R * (C + 1)), R * S1 * (2 * C + 8))})
+    cots = (torch.randn((R, S1), generator=gen, device=device), torch.randn((R, C), generator=gen, device=device),
+            torch.randn((R, 1), generator=gen, device=device))
+    got, want = composite_sky_bwd(alpha, feats, *cots), composite_sky_bwd_reference(alpha, feats, *cots)
+    _assert_all_close(got, want, K1_BWD_TOL, f"K1 bwd {path}")
+    rows.append({"name": "composite_sky_bwd", **k1, "replaces": "neuradar_tpu/ops/volumetric.py:125",
+                 "path": path, "shape": [R, S1, C], "design": composite_sky_bwd_path(feats, cots[1]),
+                 "max_abs_err": _max_err(got, want),
+                 **_times(lambda: composite_sky_bwd(alpha, feats, *cots),
+                          lambda: composite_sky_bwd_reference(alpha, feats, *cots), plain_syncs=True),
+                 **_bound(4 * (2 * R * S1 * C + 3 * R * S1 + R * C + R), R * S1 * (3 * C + 12))})
+    del alpha, feats, cots, got, want
+
+    k2b = {"route": "cuda", "source": "neuradar_tpu_torch/csrc/attention_bf16.cu"}
+    B, S, D = _group_scans(model_config, num_scans), 3531, 48
+    bf = torch.bfloat16
+    qb, kb, vb, dob = (torch.randn((B, S, D), generator=gen, device=device).to(bf) for _ in range(4))
+    out, lse, out32 = self_attention_fwd(qb, kb, vb, rate, seed, return_lse=True, return_out32=True)
+    _expect(out.dtype == bf and self_attention_bf16_fwd.launches > 0, f"K2 bf16 fwd {path}: not the bf16 kernel")
+    want32 = attention_reference(qb.float(), kb.float(), vb.float(), seed, rate)
+    torch.testing.assert_close(out, want32.to(bf), **K2_BF16_TOL, msg=lambda m: f"K2 bf16 fwd: {m}")
+    torch.testing.assert_close(out32, want32, **K2_OUT32_TOL, msg=lambda m: f"K2 bf16 fwd out32: {m}")
+    again = self_attention_fwd(qb, kb, vb, rate, seed, return_lse=True, return_out32=True)
+    _expect(all(torch.equal(a, b) for a, b in zip(again, (out, lse, out32))), "K2 bf16 fwd: two launches differ")
+    rows.append({"name": "self_attention_bf16_fwd", **k2b, "replaces": "neuradar_tpu/ops/attention.py:176",
+                 "path": path, "shape": [B, S, D], "dtype": "bfloat16", "dropout": rate,
+                 "max_abs_err": float((out.float() - want32.to(bf).float()).abs().max()),
+                 "max_abs_err_out32": float((out32 - want32).abs().max()),
+                 **_times(lambda: self_attention_fwd(qb, kb, vb, rate, seed, return_lse=True, return_out32=True),
+                          lambda: attention_reference(qb, kb, vb, seed, rate),
+                          lambda: F.scaled_dot_product_attention(qb[:, None], kb[:, None], vb[:, None],
+                                                                 dropout_p=rate)),
+                 # q, k, v in bf16; out in bf16, out32 and lse in float32
+                 **_k2_bf16_bound(2 * 3 * B * S * D + 2 * B * S * D + 4 * (B * S * D + B * S), 4 * B * S * S * D,
+                                  K2_BF16_FWD_PASSES, B, S, D)})
+    got = self_attention_bwd(qb, kb, vb, out32, dob, lse, rate, seed)
+    want = attention_bwd_reference(qb, kb, vb, dob, seed, rate)
+    _assert_all_close(got, want, K2_BF16_BWD_TOL, "K2 bf16 bwd")
+    _expect(all(g.dtype == bf for g in got), "K2 bf16 bwd: not bf16 gradients")
+    _expect(all(torch.equal(a, b) for a, b in zip(self_attention_bwd(qb, kb, vb, out32, dob, lse, rate, seed), got)),
+            "K2 bf16 bwd: two launches differ")
+    qh, kh, vh = (t[:, None].clone().requires_grad_(True) for t in (qb, kb, vb))
+    lib_out = F.scaled_dot_product_attention(qh, kh, vh, dropout_p=rate)
+    rows.append({"name": "self_attention_bf16_bwd", **k2b, "replaces": "neuradar_tpu/ops/attention.py:196",
+                 "path": path, "shape": [B, S, D], "dtype": "bfloat16", "dropout": rate,
+                 "max_abs_err": max(float((g.float() - w.float()).abs().max()) for g, w in zip(got, want)),
+                 **_times(lambda: self_attention_bwd(qb, kb, vb, out32, dob, lse, rate, seed),
+                          lambda: attention_bwd_reference(qb, kb, vb, dob, seed, rate),
+                          lambda: torch.autograd.grad(lib_out, (qh, kh, vh), dob[:, None], retain_graph=True)),
+                 # q, k, v, dO in bf16, out32 and lse in float32 read; dq, dk, dv in bf16 written
+                 **_k2_bf16_bound(2 * 4 * B * S * D + 4 * (B * S * D + B * S) + 2 * 3 * B * S * D,
+                                  10 * B * S * S * D, K2_BF16_BWD_PASSES, B, S, D)})
+    return rows
 
 
 def check_kernels(device: torch.device) -> list:
@@ -316,71 +420,12 @@ def check_kernels(device: torch.device) -> list:
                      lib_out_nodrop, (qh, kh, vh), dout[:, None], retain_graph=True)),
                  **_k2_bound(4 * (8 * B * S * D + B * S), 10 * B * S * S * D)})
 
-    # the bf16 train path: K1 forward and backward at one of its 8 chunks (K1 takes float32 there), and
-    # K2 at bf16 at one radar decode group (4 scans of the ZOD FoV, d_model 48, rate 0.1)
-    R, S1, C = 113840 // BF16_CHUNKS, 33, 32
-    alpha = torch.rand((R, S1), generator=gen, device=device)
-    feats = torch.randn((R, S1, C), generator=gen, device=device)
-    got = [t.double() for t in composite_sky_fwd(alpha, feats)]
-    want = composite_sky_reference(alpha.double(), feats.double())
-    _assert_all_close(got, want, K1_TOL, "K1 fwd train_bf16")
-    rows.append({"name": "composite_sky_fwd", **k1, "replaces": "neuradar_tpu/ops/volumetric.py:100",
-                 "path": "train_bf16", "shape": [R, S1, C], "max_abs_err": _max_err(got, want),
-                 **_times(lambda: composite_sky_fwd(alpha, feats), lambda: composite_sky_reference(alpha, feats)),
-                 **_bound(4 * (R * S1 * (C + 2) + R * (C + 1)), R * S1 * (2 * C + 8))})
-    cots = (torch.randn((R, S1), generator=gen, device=device), torch.randn((R, C), generator=gen, device=device),
-            torch.randn((R, 1), generator=gen, device=device))
-    got, want = composite_sky_bwd(alpha, feats, *cots), composite_sky_bwd_reference(alpha, feats, *cots)
-    _assert_all_close(got, want, K1_BWD_TOL, "K1 bwd train_bf16")
-    rows.append({"name": "composite_sky_bwd", **k1, "replaces": "neuradar_tpu/ops/volumetric.py:125",
-                 "path": "train_bf16", "shape": [R, S1, C], "design": composite_sky_bwd_path(feats, cots[1]),
-                 "max_abs_err": _max_err(got, want),
-                 **_times(lambda: composite_sky_bwd(alpha, feats, *cots),
-                          lambda: composite_sky_bwd_reference(alpha, feats, *cots), plain_syncs=True),
-                 **_bound(4 * (2 * R * S1 * C + 3 * R * S1 + R * C + R), R * S1 * (3 * C + 12))})
-    del alpha, feats, cots, got, want
-
-    k2b = {"route": "cuda", "source": "neuradar_tpu_torch/csrc/attention_bf16.cu"}
+    # the bf16 train path, and the set decoder's train path, which runs its encoder at bf16 in the same
+    # radar decode groups and its per-ray core in as many chunks
     bench = bench_pipeline_config("full", chunks=BF16_CHUNKS)
-    B = _group_scans(bench.model, bench.datamanager.num_radar_scans)
-    bf = torch.bfloat16
-    qb, kb, vb, dob = (torch.randn((B, S, D), generator=gen, device=device).to(bf) for _ in range(4))
-    out, lse, out32 = self_attention_fwd(qb, kb, vb, rate, seed, return_lse=True, return_out32=True)
-    _expect(out.dtype == bf and self_attention_bf16_fwd.launches > 0, "K2 bf16 fwd: not the bf16 kernel")
-    want32 = attention_reference(qb.float(), kb.float(), vb.float(), seed, rate)
-    torch.testing.assert_close(out, want32.to(bf), **K2_BF16_TOL, msg=lambda m: f"K2 bf16 fwd: {m}")
-    torch.testing.assert_close(out32, want32, **K2_OUT32_TOL, msg=lambda m: f"K2 bf16 fwd out32: {m}")
-    again = self_attention_fwd(qb, kb, vb, rate, seed, return_lse=True, return_out32=True)
-    _expect(all(torch.equal(a, b) for a, b in zip(again, (out, lse, out32))), "K2 bf16 fwd: two launches differ")
-    rows.append({"name": "self_attention_bf16_fwd", **k2b, "replaces": "neuradar_tpu/ops/attention.py:176",
-                 "path": "train_bf16", "shape": [B, S, D], "dtype": "bfloat16", "dropout": rate,
-                 "max_abs_err": float((out.float() - want32.to(bf).float()).abs().max()),
-                 "max_abs_err_out32": float((out32 - want32).abs().max()),
-                 **_times(lambda: self_attention_fwd(qb, kb, vb, rate, seed, return_lse=True, return_out32=True),
-                          lambda: attention_reference(qb, kb, vb, seed, rate),
-                          lambda: F.scaled_dot_product_attention(qb[:, None], kb[:, None], vb[:, None],
-                                                                 dropout_p=rate)),
-                 # q, k, v in bf16; out in bf16, out32 and lse in float32
-                 **_k2_bf16_bound(2 * 3 * B * S * D + 2 * B * S * D + 4 * (B * S * D + B * S), 4 * B * S * S * D,
-                                  K2_BF16_FWD_PASSES, B, S, D)})
-    got = self_attention_bwd(qb, kb, vb, out32, dob, lse, rate, seed)
-    want = attention_bwd_reference(qb, kb, vb, dob, seed, rate)
-    _assert_all_close(got, want, K2_BF16_BWD_TOL, "K2 bf16 bwd")
-    _expect(all(g.dtype == bf for g in got), "K2 bf16 bwd: not bf16 gradients")
-    _expect(all(torch.equal(a, b) for a, b in zip(self_attention_bwd(qb, kb, vb, out32, dob, lse, rate, seed), got)),
-            "K2 bf16 bwd: two launches differ")
-    qh, kh, vh = (t[:, None].clone().requires_grad_(True) for t in (qb, kb, vb))
-    lib_out = F.scaled_dot_product_attention(qh, kh, vh, dropout_p=rate)
-    rows.append({"name": "self_attention_bf16_bwd", **k2b, "replaces": "neuradar_tpu/ops/attention.py:196",
-                 "path": "train_bf16", "shape": [B, S, D], "dtype": "bfloat16", "dropout": rate,
-                 "max_abs_err": max(float((g.float() - w.float()).abs().max()) for g, w in zip(got, want)),
-                 **_times(lambda: self_attention_bwd(qb, kb, vb, out32, dob, lse, rate, seed),
-                          lambda: attention_bwd_reference(qb, kb, vb, dob, seed, rate),
-                          lambda: torch.autograd.grad(lib_out, (qh, kh, vh), dob[:, None], retain_graph=True)),
-                 # q, k, v, dO in bf16, out32 and lse in float32 read; dq, dk, dv in bf16 written
-                 **_k2_bf16_bound(2 * 4 * B * S * D + 4 * (B * S * D + B * S) + 2 * 3 * B * S * D,
-                                  10 * B * S * S * D, K2_BF16_BWD_PASSES, B, S, D)})
-    del qb, kb, vb, dob, out, lse, out32, again, got, want, qh, kh, vh, lib_out
+    rows += _bf16_path_rows(gen, device, "train_bf16", bench.model, bench.datamanager.num_radar_scans, rate, seed)
+    set_cfg = _set_config().pipeline
+    rows += _bf16_path_rows(gen, device, "train_set", set_cfg.model, set_cfg.datamanager.num_radar_scans, rate, seed)
 
     # K3 at a render chunk's shape with sample midpoints, against its plain version in float64 (as K1)
     R, S, C = 32768, 33, 32
@@ -571,6 +616,93 @@ def train_bf16(device: torch.device) -> dict:
             "eval_loss": {"seconds": dt, "losses": values}, "render_camera": {"seconds": render_s, "shapes": shapes}}
 
 
+def _set_config() -> TrainerConfig:
+    """neuradar-synthetic with the set radar decoder's settings, parsed as scripts/train.py parses the
+    train command's dotted overrides."""
+    cfg = get_method("neuradar-synthetic")
+    parse_overrides(cfg, SET_ARGV)
+    return cfg
+
+
+def _finite_dict(d: dict) -> bool:
+    return all(math.isfinite(float(v)) for v in d.values())
+
+
+def train_set(device: torch.device) -> dict:
+    """This slice's path: the set radar decoder's model trained at the preset's full batch, 3 steps
+    with the auction and 1 with the host's Hungarian, then an eval loss, one scan's render_radar and
+    the eval radar metrics."""
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    cfg = _set_config()
+    cfg.steps_per_eval_batch = cfg.steps_per_eval_image = cfg.steps_per_eval_all_images = 0
+    cfg.steps_per_eval_all_radars = cfg.steps_per_save = 0
+    cfg.save_final_checkpoint = False
+    cfg.output_dir = "chiprun_out/train_set"
+    trainer = Trainer(cfg, cfg.dataparser.setup().get_dataparser_outputs(), device)
+    trainer.setup()
+    layout = trainer.pipeline.layout
+    m = cfg.pipeline.model
+    torch.cuda.synchronize()
+    phase("train_set_setup", seconds=time.perf_counter() - t0, seed=cfg.seed, overrides=SET_ARGV,
+          rays_per_step=layout.total, camera_rays=layout.num_cam, lidar_rays=layout.num_lidar,
+          radar_scans=layout.num_radar_scans, rays_per_radar_scan=layout.rays_per_scan,
+          radar_decode_groups=radar_decode_groups(layout.num_radar_scans, m.radar_decode_chunks))
+    _expect(layout.total == FULL_BATCH_RAYS and layout.num_radar_scans == 16 and layout.rays_per_scan == 3531
+            and m.radar_decoder_type == "set" and m.num_radar_queries == 300 and m.compute_dtype == "bfloat16"
+            and m.nff_chunks == 8 and m.loss.radar_set_loss == "detr" and m.loss.vgg_mult == 0.05,
+            f"set program: {layout}, {m}")
+    groups = _param_groups(trainer)
+    before = {g: [p.detach().clone() for p in ps] for g, ps in groups.items()}
+    query_embed = trainer.model.radar_decoder.query_embed
+    query_before = query_embed.detach().clone()
+    hungarian = radar_utils.hungarian_assignment
+    # one call first, so that scipy's import is not timed as the Hungarian step's host work
+    hungarian(torch.zeros((1, 1, 1), device=device), torch.ones((1, 1), dtype=torch.bool, device=device))
+    steps = []
+    for step in range(SET_AUCTION_STEPS + 1):
+        m.loss.radar_assignment = "auction" if step < SET_AUCTION_STEPS else "hungarian"
+        calls, sync_s, solve_s = hungarian.calls, hungarian.sync_seconds, hungarian.solve_seconds
+        torch.cuda.reset_peak_memory_stats()
+        (losses, metrics), dt = _timed(trainer.train_step)
+        values = {k: float(v) for k, v in losses.items()}
+        steps.append({"step": step, "assignment": m.loss.radar_assignment, "seconds": dt,
+                      "rays_per_s": layout.total / dt, "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30,
+                      "hungarian_calls": hungarian.calls - calls,
+                      "hungarian_sync_ms": (hungarian.sync_seconds - sync_s) * 1e3,
+                      "hungarian_solve_ms": (hungarian.solve_seconds - solve_s) * 1e3})
+        phase("train_set_step", **steps[-1], finite=_finite_dict(values), losses=values,
+              metrics={k: float(v) for k, v in metrics.items()})
+        _expect(_finite_dict(values) and "radar_aux_loss" in values, f"set train step {step}: {values}")
+    # the Hungarian step: the main loss and the one intermediate layer's, one host round trip each
+    _expect(steps[-1]["hungarian_calls"] == 2 and all(st["hungarian_calls"] == 0 for st in steps[:-1]),
+            f"Hungarian calls per step: {[st['hungarian_calls'] for st in steps]}")
+    (losses, metrics), eval_s = _timed(trainer.eval_loss)
+    eval_values = {k: float(v) for k, v in losses.items()}
+    _expect(_finite_dict(eval_values), f"set eval loss not finite: {eval_values}")
+    scan = int(trainer.pipeline.datamanager.eval_radar_indices()[0])
+    rend, render_s = _timed(lambda: trainer.pipeline.render_radar(scan))
+    ro = rend["radar_output"]
+    _expect(list(ro.shape) == [300, 7] and _finite(ro), f"set render_radar: {list(ro.shape)}")
+    radar_metrics, metrics_s = _timed(trainer.pipeline.get_average_eval_radar_metrics)
+    _expect(_finite_dict(radar_metrics), f"set eval radar metrics: {radar_metrics}")
+    changed = {g: any(not torch.equal(p, q) for p, q in zip(groups[g], before[g])) for g in groups}
+    changed["query_embed"] = not torch.equal(query_embed.detach(), query_before)
+    phase("train_set_params_changed", groups=changed)
+    # the VGG loss's filters are frozen; every other group trains
+    _expect(not changed.pop("frozen") and all(changed.values()), f"a parameter group did not change: {changed}")
+    trainer.shutdown()
+    del trainer, before, groups
+    torch.cuda.empty_cache()
+    auction = sorted(st["seconds"] for st in steps[:SET_AUCTION_STEPS])
+    return {"steps": steps, "median_step_s_auction": auction[len(auction) // 2],
+            "hungarian_step_s": steps[-1]["seconds"], "peak_mem_gb": max(st["peak_mem_gb"] for st in steps),
+            "hungarian_host_ms_per_step": steps[-1]["hungarian_sync_ms"] + steps[-1]["hungarian_solve_ms"],
+            "eval_loss": {"seconds": eval_s, "losses": eval_values},
+            "render_radar": {"seconds": render_s, "shape": list(ro.shape)},
+            "eval_radar_metrics": {"seconds": metrics_s, **radar_metrics}}
+
+
 def _tiny_outputs():
     out = SyntheticDataParser(SyntheticDataParserConfig(
         num_frames=8, image_height=24, image_width=36, lidar_points_per_scan=256)).get_dataparser_outputs()
@@ -579,9 +711,11 @@ def _tiny_outputs():
     return out
 
 
-def _tiny_pipeline(device, nff_chunks: int = 1, dtype: str = "float32", vgg: bool = False) -> ADNeuRadarPipeline:
+def _tiny_pipeline(device, nff_chunks: int = 1, dtype: str = "float32", vgg: bool = False,
+                   set_loss: str = "") -> ADNeuRadarPipeline:
     """The tiny scene and model, radar in 2 groups; without the VGG loss 4-ray patches (12 pixels, too
-    small for VGG-19's four pools), with it 8-ray patches (24 pixels)."""
+    small for VGG-19's four pools), with it 8-ray patches (24 pixels). ``set_loss`` ("mb" or "detr")
+    gives it the set radar decoder with TINY_SET_QUERIES queries and deep supervision."""
     out = _tiny_outputs()
     cfg = ADNeuRadarPipelineConfig(datamanager=ADDataManagerConfig(
         num_rgb_patches=2, patch_size=8 if vgg else 4, num_lidar_rays=32, num_radar_scans=2, max_radar_gt=16))
@@ -597,6 +731,13 @@ def _tiny_pipeline(device, nff_chunks: int = 1, dtype: str = "float32", vgg: boo
     m.sampling.num_proposal_samples = (16, 8)
     m.sampling.num_nerf_samples = 6
     m.nff_chunks = nff_chunks
+    if set_loss:
+        m.radar_decoder_type = "set"
+        m.loss.radar_set_loss = set_loss
+        m.num_radar_queries = TINY_SET_QUERIES
+        # the auction does not converge on the set decoder's near-equal costs at init, and the card's
+        # last-bit cost differences then change its result (tests/test_torch_set_decoder.py)
+        m.loss.radar_assignment = "hungarian"
     return ADNeuRadarPipeline(cfg, out, device, seed=0)
 
 
@@ -617,11 +758,12 @@ def check_tiny_agreement(device: torch.device) -> float:
     return worst
 
 
-def check_tiny_train_agreement(device: torch.device) -> dict:
+def check_tiny_train_agreement(device: torch.device, set_loss: str = "") -> dict:
     """One tiny train step (flips and dropout on, the per-ray core in recomputed chunks) through
     the kernels on the card against the plain versions on the CPU: same weights, same batch, and
-    the same random draws, made by a CPU generator with one seed and moved to the card."""
-    gpu, cpu = _tiny_pipeline(device, TINY_NFF_CHUNKS), _tiny_pipeline("cpu", TINY_NFF_CHUNKS)
+    the same random draws, made by a CPU generator with one seed and moved to the card. With
+    ``set_loss`` the set radar decoder's model, its association by the host's Hungarian."""
+    gpu, cpu = (_tiny_pipeline(d, TINY_NFF_CHUNKS, set_loss=set_loss) for d in (device, "cpu"))
     _expect(gpu.layout.total % TINY_NFF_CHUNKS == 0, f"{gpu.layout.total} rays do not split in chunks")
     cpu.model.load_state_dict({k: v.cpu() for k, v in gpu.model.state_dict().items()})
     batch = gpu.datamanager.sample_train_batch()
@@ -650,21 +792,17 @@ def check_tiny_train_agreement(device: torch.device) -> dict:
             floor_grad[name] = {"max_abs_grad": scale, "max_abs_err": err}
         torch.testing.assert_close(g, c, rtol=TRAIN_GRAD_RTOL, atol=atol, msg=lambda m, name=name: f"grad {name}: {m}")
         worst_grad = max(worst_grad, err)
+    _expect(not set_loss or "radar_aux_loss" in c_losses, f"no radar_aux_loss: {sorted(c_losses)}")
     return {"nff_chunks": TINY_NFF_CHUNKS, "loss_terms": len(c_losses), "max_abs_err_loss": worst_loss,
             "max_abs_err_grad": worst_grad, "loss_tol": TRAIN_LOSS_TOL, "grad_rtol": TRAIN_GRAD_RTOL,
             "grad_atol_floor": TRAIN_GRAD_ATOL_FLOOR, "zero_grad": ZERO_GRAD, "zero_grad_leaves": zero_grad,
             "floor_leaves": floor_grad, "total": float(c_total.detach())}
 
 
-def _pinned_radar_loss(pinned: torch.Tensor):
-    """radar_utils.calculate_radar_loss with the association solved on the cost of ``pinned``."""
-
-    def loss(gt, gt_mask, radar_output, training=True):
-        cost = radar_utils.radar_cost_matrix(gt, gt_mask, pinned.to(gt.device), "euclidean")
-        assigned = radar_utils.auction_assignment(cost, gt_mask)
-        return torch.mean(radar_utils.radar_scan_loss(gt, gt_mask, radar_output, assigned)), assigned
-
-    return loss
+def _pinned_assignment(batch: dict, pinned: torch.Tensor) -> torch.Tensor:
+    """One fixed association of the batch's GT rows: the auction on the euclidean cost of ``pinned``."""
+    gt, gt_mask = torch.from_numpy(batch["radar_gt"]), torch.from_numpy(batch["radar_gt_mask"])
+    return radar_utils.auction_assignment(radar_utils.radar_cost_matrix(gt, gt_mask, pinned, "euclidean"), gt_mask)
 
 
 # the tiny bf16 step card vs CPU, by the rule tests/test_torch_bf16_train.py holds the port to against
@@ -678,28 +816,41 @@ BF16_GRAD_SHARE = 0.125
 BF16_ZERO_GRAD = 2e-4
 BF16_GRAD_FLOOR = 2e-5
 BF16_LOSS_RTOL = 1e-3
+# the set model's bf16 step, by the rules tests/test_torch_set_decoder.py holds it to against the JAX
+# package: its radar terms come out of five bf16 blocks, so they are held like the gradients, within
+# BF16_GRAD_SHARE of the CPU's own bf16-to-float32 distance; the decoder layers' attention query and
+# key projections get their gradients through the bf16 softmax backward alone, where two bf16 runs
+# round independently, so each is held by its accuracy: |card - CPU float32| <= BF16_ACCURACY x
+# |CPU - CPU float32| in L2
+SET_RADAR_TERMS = ("radar_loss", "radar_aux_loss")
+SOFTMAX_PATH = re.compile(r"radar_decoder\.layer_\d+\.(self_attn|cross_attn)\.(query|key)\.")
+BF16_ACCURACY = 1.25
+TINY_SET_QUERIES = 24
 
 
-def check_tiny_bf16_train_agreement(device: torch.device) -> dict:
+def check_tiny_bf16_train_agreement(device: torch.device, set_loss: str = "") -> dict:
     """One tiny bf16 step (2 recomputed chunks, 2 radar groups, hoisted cast, flips, dropout and the
     VGG loss on) through the kernels on the card against the plain versions on the CPU, and a float32
     step on the CPU to measure what bf16 itself moves; the radar association solved on one fixed
-    cost matrix on all three, since bf16's rounding can flip a near tie of the auction."""
-    pipes = {"card": _tiny_pipeline(device, TINY_NFF_CHUNKS, "bfloat16", vgg=True),
-             "cpu": _tiny_pipeline("cpu", TINY_NFF_CHUNKS, "bfloat16", vgg=True),
-             "cpu_f32": _tiny_pipeline("cpu", TINY_NFF_CHUNKS, "float32", vgg=True)}
+    cost matrix on all three, since bf16's rounding can flip a near tie of the auction. With
+    ``set_loss`` the set radar decoder's model, by SET_RADAR_TERMS and SOFTMAX_PATH's rules."""
+    pipes = {"card": _tiny_pipeline(device, TINY_NFF_CHUNKS, "bfloat16", vgg=True, set_loss=set_loss),
+             "cpu": _tiny_pipeline("cpu", TINY_NFF_CHUNKS, "bfloat16", vgg=True, set_loss=set_loss),
+             "cpu_f32": _tiny_pipeline("cpu", TINY_NFF_CHUNKS, "float32", vgg=True, set_loss=set_loss)}
     state = {k: v.cpu() for k, v in pipes["card"].model.state_dict().items()}
     for name in ("cpu", "cpu_f32"):
         pipes[name].model.load_state_dict(state)
     batch = pipes["card"].datamanager.sample_train_batch()
     layout = pipes["card"].layout
     gen = torch.Generator().manual_seed(5)
-    pinned = torch.cat([torch.rand((layout.num_radar_scans, layout.rays_per_scan, 1), generator=gen) * 0.6 + 0.2,
-                        torch.randn((layout.num_radar_scans, layout.rays_per_scan, 3), generator=gen) * 20,
-                        torch.rand((layout.num_radar_scans, layout.rays_per_scan, 3), generator=gen) + 0.5], -1)
+    n_mb = TINY_SET_QUERIES if set_loss else layout.rays_per_scan
+    pinned = torch.cat([torch.rand((layout.num_radar_scans, n_mb, 1), generator=gen) * 0.6 + 0.2,
+                        torch.randn((layout.num_radar_scans, n_mb, 3), generator=gen) * 20,
+                        torch.rand((layout.num_radar_scans, n_mb, 3), generator=gen) + 0.5], -1)
+    assigned = _pinned_assignment(batch, pinned)
     results = {}
-    original = radar_utils.calculate_radar_loss
-    radar_utils.calculate_radar_loss = _pinned_radar_loss(pinned)
+    original = radar_utils.solve_assignment
+    radar_utils.solve_assignment = lambda cost, row_mask, method="auction": assigned.to(cost.device)
     try:
         for name, pipe in pipes.items():
             pipe.model.train()
@@ -710,18 +861,23 @@ def check_tiny_bf16_train_agreement(device: torch.device) -> dict:
                              {n: (p.grad if p.grad is not None else torch.zeros_like(p)).cpu()
                               for n, p in pipe.model.named_parameters()})
     finally:
-        radar_utils.calculate_radar_loss = original
+        radar_utils.solve_assignment = original
     (g_loss, g_grad), (c_loss, c_grad), (f_loss, f_grad) = results["card"], results["cpu"], results["cpu_f32"]
     _expect("vgg_loss" in c_loss, "the VGG loss did not run")
-    worst_loss = 0.0
+    _expect(not set_loss or "radar_aux_loss" in c_loss, f"no radar_aux_loss: {sorted(c_loss)}")
+    worst_loss, radar_shares = 0.0, {}
     for key, c in c_loss.items():
+        if set_loss and key in SET_RADAR_TERMS:
+            radar_shares[key] = float((g_loss[key] - c).abs() / (c - f_loss[key]).abs())
+            _expect(radar_shares[key] <= BF16_GRAD_SHARE, f"bf16 {key}: card-CPU share {radar_shares[key]}")
+            continue
         torch.testing.assert_close(g_loss[key], c, rtol=BF16_LOSS_RTOL, atol=0,
                                    msg=lambda m, key=key: f"bf16 {key}: {m}")
         worst_loss = max(worst_loss, float((g_loss[key] - c).abs() / c.abs().clamp_min(1e-30)))
     largest = max(float(c.abs().max()) for c in c_grad.values())
     floor = BF16_GRAD_FLOOR * largest
     num = dtype_num = den = 0.0
-    shares, floored = {}, {}
+    shares, floored, accuracy = {}, {}, {}
     for name, c in c_grad.items():
         g, f = g_grad[name], f_grad[name]
         err, dtype_err = float((g - c).norm()), float((c - f).norm())
@@ -729,6 +885,9 @@ def check_tiny_bf16_train_agreement(device: torch.device) -> dict:
         if peak < BF16_ZERO_GRAD * largest:
             floored[name] = max_err
             _expect(max_err <= floor, f"bf16 grad {name}: card-CPU {max_err}, floor {floor}")
+        elif set_loss and SOFTMAX_PATH.match(name):
+            accuracy[name] = float((g - f).norm()) / dtype_err
+            _expect(accuracy[name] <= BF16_ACCURACY, f"bf16 grad {name}: accuracy {accuracy[name]}")
         else:
             shares[name] = err / dtype_err
             _expect(err <= BF16_GRAD_SHARE * dtype_err, f"bf16 grad {name}: card-CPU {err}, bf16-float32 {dtype_err}")
@@ -739,7 +898,8 @@ def check_tiny_bf16_train_agreement(device: torch.device) -> dict:
             f"bf16 grads: card-CPU {num**0.5}, bf16-float32 {dtype_num**0.5}")
     top = sorted(shares.items(), key=lambda kv: -kv[1])[:3]
     return {"nff_chunks": TINY_NFF_CHUNKS, "radar_groups": 2, "loss_terms": len(c_loss) - 1,
-            "max_rel_err_loss": worst_loss, "loss_rtol": BF16_LOSS_RTOL,
+            "max_rel_err_loss": worst_loss, "loss_rtol": BF16_LOSS_RTOL, "radar_term_shares": radar_shares,
+            "softmax_path_accuracy": max(accuracy.values(), default=None),
             "grad_rel_l2_card_cpu": (num / den) ** 0.5, "grad_rel_l2_bf16_f32": (dtype_num / den) ** 0.5,
             "grad_share": BF16_GRAD_SHARE, "worst_grad_shares": dict(top),
             "grad_floor": floor, "worst_floored": max(floored.values(), default=0.0), "total": float(c_loss["total"])}
@@ -815,8 +975,11 @@ def cli_train() -> dict:
     return report
 
 
-# the JAX package's tiny learning curve on the CPU (bfloat16, 4 steps a dispatch), for comparison only
+# the JAX package's tiny learning curve on the CPU (bfloat16, 4 steps a dispatch), for comparison only,
+# and its curve with the host's Hungarian association
 JAX_CURVE = Path("artifacts/learning_curve_cpu_tiny_20k.json")
+JAX_HUNGARIAN_CURVE = Path("artifacts/curve_tiny_hungarian_2500.json")
+LEARNING_KEYS = ("loss", "psnr", "depth_loss", "radar_loss")
 
 
 def _quarters(points: list) -> dict:
@@ -825,25 +988,33 @@ def _quarters(points: list) -> dict:
     return {"first": sum(v for _, v in points[:q]) / q, "last": sum(v for _, v in points[-q:]) / q}
 
 
+def _first_300(path: Path) -> dict:
+    curves = json.loads(path.read_text())["curves"]
+    return {k: _quarters([p for p in curves[k] if p[0] < 300]) for k in LEARNING_KEYS}
+
+
 def learning() -> dict:
-    """The tiny learning check on the card, 300 steps, at bf16 (the JAX curve's dtype, the default)
-    and at float32, and the JAX package's CPU curve beside them."""
+    """The tiny learning check on the card, 300 steps each: at bf16 (the JAX curve's dtype, the
+    default) and at float32, with the JAX package's CPU curve beside them; then at bf16 with the set
+    radar decoder, and with the host's Hungarian beside the JAX package's Hungarian curve."""
     jax_curves = json.loads(JAX_CURVE.read_text())["curves"]
-    jax = {k: _quarters([p for p in jax_curves[k] if p[0] < 300]) for k in ("loss", "psnr", "depth_loss", "radar_loss")}
-    result = {"jax_cpu_bf16_first_300": jax}
-    for dtype, flag in (("bfloat16", "--bf16"), ("float32", "--no-bf16")):
-        out_dir = Path("chiprun_out/learning") / dtype
+    jax = _first_300(JAX_CURVE)
+    result = {"jax_cpu_bf16_first_300": jax, "jax_cpu_bf16_hungarian_first_300": _first_300(JAX_HUNGARIAN_CURVE)}
+    for name, flags in (("bfloat16", ["--bf16"]), ("float32", ["--no-bf16"]), ("set_decoder", ["--set-decoder"]),
+                        ("hungarian", ["--radar-assignment", "hungarian"])):
+        out_dir = Path("chiprun_out/learning") / name
         shutil.rmtree(out_dir, ignore_errors=True)
         t0 = time.perf_counter()
         rc = validate_learning.main(["--scale", "tiny", "--iters", "300", "--eval-every", "50", "--device", "cuda",
-                                     "--output-dir", str(out_dir), flag])
+                                     "--output-dir", str(out_dir), *flags])
         seconds = time.perf_counter() - t0
-        _expect(rc == 0, f"learning {dtype}: LEARNING CHECK did not PASS")
+        _expect(rc == 0, f"learning {name}: LEARNING CHECK did not PASS")
         (report_path,) = out_dir.glob("*/neuradar/learning_check.json")
         report = json.loads(report_path.read_text())
-        result[dtype] = {"seconds": seconds, "port": {k: report[k] for k in jax},
-                         "curve_keys": report.get("curve_keys"),
-                         "jax_curve_keys_missing": sorted(set(jax_curves) - set(report.get("curve_keys", [])))}
+        result[name] = {"seconds": seconds, "port": {k: report[k] for k in LEARNING_KEYS},
+                        "set_decoder": report["set_decoder"], "radar_assignment": report["radar_assignment"],
+                        "curve_keys": report.get("curve_keys"),
+                        "jax_curve_keys_missing": sorted(set(jax_curves) - set(report.get("curve_keys", [])))}
     return result
 
 
@@ -901,9 +1072,23 @@ def main() -> int:
     _expect(self_attention_fwd.launches == 0 and self_attention_bwd.launches == 0,
             "the bf16 train path launched the float32 K2")
 
+    for k in COUNTED_KERNELS:
+        k.launches = 0
+    t0 = time.perf_counter()
+    report = train_set(device)
+    set_launches = {k.__name__: k.launches for k in BF16_PATH_KERNELS}
+    phase("train_set", seconds=time.perf_counter() - t0, launches=set_launches, **report)
+    _expect(all(n > 0 for n in set_launches.values()),
+            f"a kernel of the set decoder's train path never launched: {set_launches}")
+    _expect(self_attention_fwd.launches == 0 and self_attention_bwd.launches == 0,
+            "the set decoder's bf16 train path launched the float32 K2")
+
     phase("agreement", max_abs_err=check_tiny_agreement(device), **TINY_TOL)
     phase("train_agreement", **check_tiny_train_agreement(device))
     phase("train_bf16_agreement", **check_tiny_bf16_train_agreement(device))
+    for set_loss in ("detr", "mb"):
+        phase("train_set_agreement", set_loss=set_loss, **check_tiny_train_agreement(device, set_loss))
+        phase("train_set_bf16_agreement", set_loss=set_loss, **check_tiny_bf16_train_agreement(device, set_loss))
 
     for k in COUNTED_KERNELS:
         k.launches = 0
@@ -914,7 +1099,8 @@ def main() -> int:
 
     phase("learning", **learning())
 
-    path_launches = {"render": render_launches, "train": launches, "train_bf16": bf16_launches}
+    path_launches = {"render": render_launches, "train": launches, "train_bf16": bf16_launches,
+                     "train_set": set_launches}
     for row in rows:
         if row["path"] != "standalone":
             row["launches"] = path_launches[row["path"]][row["name"]]

@@ -1,17 +1,23 @@
-"""Radar loss: multi-Bernoulli NLL with an on-device auction assignment, and
-the eval-side point sampling and point-cloud distances (port of the JAX
-package's model_components/radar_utils.py).
+"""Radar loss: the multi-Bernoulli loss (NLL or euclidean) with a set association, the DETR set
+loss of the set decoder, and the eval-side point sampling and point-cloud distances (port of the
+JAX package's model_components/radar_utils.py).
 
-Ground-truth scans are padded to [num_scans, max_gt, 3] with a validity mask.
-Each GT point is assigned a distinct multi-Bernoulli component by a Jacobi
-auction run on the device, batched over scans, for a fixed number of rounds:
-the JAX package's while_loop stops once every valid row is assigned, and a
-round with no unassigned row changes nothing, so the fixed count gives the
-same answer without a host sync per round.
+Ground-truth scans are padded to [num_scans, max_gt, 3] with a validity mask. Each GT point is
+assigned a distinct component (a multi-Bernoulli component or a set query) by one of two solvers:
+
+* "auction": a Jacobi auction on the device, batched over scans, for a fixed number of rounds.
+  The JAX package's while_loop stops once every valid row is assigned, and a round with no
+  unassigned row changes nothing, so the fixed count gives the same answer without a host sync
+  per round. With more valid rows than columns no round leaves every row assigned, and the JAX
+  loop too runs all its rounds.
+* "hungarian": scipy's exact ``linear_sum_assignment`` on the host, one scan at a time over its
+  masked rows, as the JAX package's ``pure_callback`` runs it. Each call copies the cost to the
+  host, which waits for the device (a sync), and copies the assignment back.
 """
 
 from __future__ import annotations
 
+import time
 from typing import Optional, Tuple
 
 import numpy as np
@@ -50,10 +56,11 @@ def radar_cost_matrix(gt: torch.Tensor, gt_mask: torch.Tensor, prediction: torch
 
 def auction_assignment(cost: torch.Tensor, row_mask: torch.Tensor, eps: float = 1e-3,
                        max_iters: int = 64) -> torch.Tensor:
-    """Jacobi auction over a batch: cost [N, P, O] (P <= O), row_mask [N, P] -> assigned
-    [N, P] long, the column of each valid row, -1 for unassigned or masked rows. Each
-    round every unassigned row bids for its best column; each column goes to its highest
-    bidder, evicting the previous owner."""
+    """Jacobi auction over a batch: cost [N, P, O], row_mask [N, P] -> assigned [N, P] long, the
+    column of each valid row, -1 for unassigned or masked rows. Each round every unassigned row
+    bids for its best column; each column goes to its highest bidder, evicting the previous owner.
+    With more valid rows than columns (P > O) the surplus rows end at -1 after ``max_iters``
+    rounds, as in the JAX package."""
     N, P, O = cost.shape
     device = cost.device
     benefit = -cost
@@ -83,10 +90,56 @@ def auction_assignment(cost: torch.Tensor, row_mask: torch.Tensor, eps: float = 
     return torch.where(row_mask, assigned, torch.full_like(assigned, -1))
 
 
+def _hungarian_host(cost: np.ndarray, row_mask: np.ndarray) -> np.ndarray:
+    """Exact assignment of a batch of scans on the host: cost [N, P, O], row_mask [N, P] -> [N, P]
+    int64, -1 for masked rows and for the rows left over when a scan has more rows than columns."""
+    from scipy.optimize import linear_sum_assignment
+
+    out = np.full(cost.shape[:-1], -1, np.int64)
+    for b in range(cost.shape[0]):
+        rows_b = np.flatnonzero(row_mask[b])
+        if len(rows_b) == 0:
+            continue
+        rows, cols = linear_sum_assignment(cost[b][rows_b])
+        out[b, rows_b[rows]] = cols
+    return out
+
+
+def hungarian_assignment(cost: torch.Tensor, row_mask: torch.Tensor) -> torch.Tensor:
+    """scipy's exact Hungarian per scan: cost [N, P, O], row_mask [N, P] -> assigned [N, P] long
+    on the cost's device. One copy to the host (a sync on the card) and one back per call; the
+    call counts itself, its seconds waiting for the copy (``sync_seconds``) and its seconds in
+    scipy (``solve_seconds``)."""
+    t0 = time.perf_counter()
+    cost_np = cost.detach().float().cpu().numpy()
+    mask_np = row_mask.cpu().numpy()
+    t1 = time.perf_counter()
+    out = _hungarian_host(cost_np, mask_np)
+    hungarian_assignment.calls += 1
+    hungarian_assignment.sync_seconds += t1 - t0
+    hungarian_assignment.solve_seconds += time.perf_counter() - t1
+    return torch.from_numpy(out).to(cost.device)
+
+
+hungarian_assignment.calls = 0
+hungarian_assignment.sync_seconds = 0.0
+hungarian_assignment.solve_seconds = 0.0
+
+
+def solve_assignment(cost: torch.Tensor, row_mask: torch.Tensor, method: str = "auction") -> torch.Tensor:
+    """Batched assignment: cost [N, P, O], row_mask [N, P] -> [N, P] long, -1 where unassigned."""
+    if method == "auction":
+        return auction_assignment(cost, row_mask)
+    if method == "hungarian":
+        return hungarian_assignment(cost, row_mask)
+    raise ValueError(method)
+
+
 def radar_scan_loss(gt: torch.Tensor, gt_mask: torch.Tensor, prediction: torch.Tensor,
-                    assigned: torch.Tensor) -> torch.Tensor:
+                    assigned: torch.Tensor, loss_type: str = "nll") -> torch.Tensor:
     """Per-scan multi-Bernoulli loss [N] given the assignment: every component pays -log(1 - r),
-    an associated one instead -log(r) plus its Laplace NLL; normalized by n_mb."""
+    an associated one instead -log(r) plus its point error, the Laplace NLL ('nll') or the distance
+    to its GT point ('euclidean'); normalized by n_mb."""
     N, G, _ = gt.shape
     r, mean, scale = mb_split(prediction)
     n_mb = prediction.shape[-2]
@@ -98,18 +151,56 @@ def radar_scan_loss(gt: torch.Tensor, gt_mask: torch.Tensor, prediction: torch.T
     is_assoc = assoc_gt >= 0
     gt_for_mb = torch.gather(gt, 1, torch.clamp(assoc_gt, min=0)[..., None].expand(N, n_mb, 3))
     unassoc_loss = -torch.log1p(-r)
-    assoc_loss = -laplace_log_prob(gt_for_mb, mean, scale).sum(-1) - torch.log(r)
+    if loss_type == "nll":
+        assoc_loss = -laplace_log_prob(gt_for_mb, mean, scale).sum(-1) - torch.log(r)
+    elif loss_type == "euclidean":
+        assoc_loss = torch.linalg.vector_norm(mean - gt_for_mb, dim=-1) - torch.log(r)
+    else:
+        raise ValueError(loss_type)
     return torch.sum(torch.where(is_assoc, assoc_loss, unassoc_loss), dim=-1) / n_mb
 
 
 def calculate_radar_loss(gt: torch.Tensor, gt_mask: torch.Tensor, radar_output: torch.Tensor,
-                         training: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Mean radar NLL over scans and the auction's assignment [N, G]. The association cost is
-    euclidean in training and the NLL in eval, and carries no gradient. (The JAX package's
-    euclidean loss and host Hungarian solver are options no preset of the port runs.)"""
-    cost = radar_cost_matrix(gt, gt_mask, radar_output.detach(), "euclidean" if training else "nll")
-    assigned = auction_assignment(cost, gt_mask)
-    return torch.mean(radar_scan_loss(gt, gt_mask, radar_output, assigned)), assigned
+                         loss_type: str = "nll", training: bool = True,
+                         assignment: str = "auction") -> Tuple[torch.Tensor, torch.Tensor]:
+    """Mean radar loss over scans and the assignment [N, G]: gt [N, G, 3], gt_mask [N, G],
+    radar_output [N, n_mb, 7]. The association cost is euclidean in training whatever the loss
+    type, the loss type's own in eval, and carries no gradient."""
+    cost = radar_cost_matrix(gt, gt_mask, radar_output.detach(), "euclidean" if training else loss_type)
+    assigned = solve_assignment(cost, gt_mask, assignment)
+    return torch.mean(radar_scan_loss(gt, gt_mask, radar_output, assigned, loss_type)), assigned
+
+
+def detr_set_loss(gt: torch.Tensor, gt_mask: torch.Tensor, radar_output: torch.Tensor, cost_class: float = 1.0,
+                  cost_point: float = 0.2, eos_coef: float = 0.1, point_mult: float = 1.0,
+                  assignment: str = "auction") -> Tuple[torch.Tensor, torch.Tensor]:
+    """DETR's set criterion on radar point sets: mean loss over scans and the assignment [N, G].
+
+    The matching, without gradient, minimizes cost_class * (-existence) + cost_point * L1(xyz, gt);
+    the existence BCE weights the unmatched queries by ``eos_coef``; the L1 point loss is taken over
+    the matched pairs and divided by their count. gt [N, G, 3], gt_mask [N, G], radar_output
+    [N, Q, 7]."""
+    ep, xyz = radar_output[..., 0], radar_output[..., 1:4]
+    N, G, _ = gt.shape
+    Q = ep.shape[-1]
+    with torch.no_grad():
+        l1 = torch.abs(gt[:, :, None, :] - xyz[:, None, :, :]).sum(-1)  # [N, G, Q]
+        cost = torch.where(gt_mask[..., None], cost_class * (-ep)[:, None, :] + cost_point * l1,
+                           torch.zeros_like(l1))
+    assigned = solve_assignment(cost, gt_mask, assignment)
+    valid = (assigned >= 0) & gt_mask
+    matched = torch.zeros((N, Q + 1), dtype=torch.bool, device=gt.device)
+    matched.scatter_(1, torch.where(valid, assigned, torch.full_like(assigned, Q)), True)
+    matched = matched[:, :Q]
+    t = matched.to(ep.dtype)
+    bce = -(t * torch.log(ep + EPS) + (1.0 - t) * torch.log1p(-ep + EPS))
+    w = torch.where(matched, torch.ones_like(ep), torch.full_like(ep, eos_coef))
+    loss_exist = torch.sum(w * bce, dim=-1) / torch.clamp(torch.sum(w, dim=-1), min=EPS)
+    sel = torch.gather(xyz, 1, torch.clamp(assigned, min=0)[..., None].expand(N, G, 3))
+    l1 = torch.abs(sel - gt).sum(-1)
+    loss_point = (torch.sum(torch.where(valid, l1, torch.zeros_like(l1)), dim=-1)
+                  / torch.clamp(valid.sum(-1), min=1))
+    return torch.mean(loss_exist + point_mult * loss_point), assigned
 
 
 # ---------------------------------------------------------------------------- eval: point sampling

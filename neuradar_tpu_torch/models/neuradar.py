@@ -10,9 +10,14 @@ attention is kernel K2) -> the loss terms. Training draws its randomness
 per-ray core runs in ``nff_chunks`` chunks; in training each chunk is
 recomputed in the backward pass (``torch.utils.checkpoint``, the counterpart
 of the JAX package's nff_remat), so only one chunk's activations live at a
-time. The radar scans are decoded in ``radar_decode_chunks`` groups, each
-recomputed in the backward pass when training; the dropout draws are made
-for all scans first, so the grouping changes no result.
+time. The radar decoder is the per-ray encoder or, with ``radar_decoder_type``
+"set", the DETR-style set decoder (its encoder's attention is K2 too), with
+the multi-Bernoulli loss (NLL or euclidean) or DETR's set loss, the auction or
+the host's Hungarian assignment, and the set decoder's deep supervision. The
+radar scans are decoded in ``radar_decode_chunks`` groups, those of the per-ray
+decoder recomputed in the backward pass when training; the dropout draws are
+made for all scans first, so the grouping changes no result (apart from the
+set decoder's broadcast attention masks, one per group as in the JAX package).
 
 ``compute_dtype`` "bfloat16" runs the hash grids, the field MLPs and the
 radar transformer in bf16 (K2 at bf16); compositing (K1), the decoders' heads
@@ -60,7 +65,7 @@ from neuradar_tpu_torch.model_components.losses import (
     ray_samples_to_sdist,
     zipnerf_interlevel_loss_sdist,
 )
-from neuradar_tpu_torch.model_components.radar_decoder import RadarDecoder, spherical_to_cartesian
+from neuradar_tpu_torch.model_components.radar_decoder import RadarDecoder, SetRadarDecoder, spherical_to_cartesian
 from neuradar_tpu_torch.model_components.ray_samplers import draw_jitter, power_sampler, proposal_network_sampler
 from neuradar_tpu_torch.model_components.renderers import render_depth_simple
 from neuradar_tpu_torch.model_components.vgg import VGGPerceptualLossPix2Pix
@@ -85,6 +90,11 @@ class LossSettings:
     ray_drop_loss_mult: float = 0.01
     prop_lidar_loss_mult: float = 0.1
     radar_mult: float = 0.02
+    radar_loss_type: str = "nll"  # nll | euclidean
+    radar_assignment: str = "auction"  # auction (on the device) | hungarian (scipy on the host)
+    radar_set_loss: str = "mb"
+    """The set decoder's loss: "mb" the multi-Bernoulli loss with one component per query, "detr"
+    DETR's set criterion (``radar_utils.detr_set_loss``)."""
 
 
 @dataclass
@@ -124,6 +134,13 @@ class NeuRadarModelConfig:
     """Under a compute_dtype other than float32: cast the hash tables once per request (the
     pipeline calls ``cast_tables``) instead of inside every chunk."""
     radar_transformer_dropout: float = 0.1
+    radar_decoder_type: str = "encoder"
+    """"encoder" (per-ray heads on the NeRF geometry) or "set" (DETR-style learnable queries)."""
+    num_radar_queries: int = 300
+    """The set decoder's query count."""
+    radar_set_aux_loss: bool = True
+    """The set decoder's deep supervision: in training every intermediate decoder layer's output
+    pays the radar loss too (``radar_aux_loss``)."""
 
     @property
     def num_proposal_rounds(self) -> int:
@@ -206,7 +223,16 @@ class NeuRadarModel(nn.Module):
         n_features = config.field.nff_out_dim + config.appearance_dim
         self.rgb_decoder = RGBDecoder(n_features, config.rgb_hidden_dim, config.rgb_upsample_factor)
         self.lidar_decoder = MLP(n_features, 2, num_layers=3, layer_width=32)
-        self.radar_decoder = RadarDecoder(d_model=n_features, dropout=config.radar_transformer_dropout, dtype=cdt)
+        if config.radar_decoder_type == "set":
+            self.radar_decoder = SetRadarDecoder(
+                d_model=n_features, num_queries=config.num_radar_queries, position_scale=scene.static_scale,
+                dropout=config.radar_transformer_dropout, aux_loss=config.radar_set_aux_loss, dtype=cdt)
+        elif config.radar_decoder_type == "encoder":
+            self.radar_decoder = RadarDecoder(d_model=n_features, dropout=config.radar_transformer_dropout, dtype=cdt)
+        else:
+            raise ValueError(f"radar_decoder_type {config.radar_decoder_type!r}: 'encoder' or 'set'")
+        if config.loss.radar_set_loss not in ("mb", "detr"):
+            raise ValueError(f"radar_set_loss {config.loss.radar_set_loss!r}: 'mb' or 'detr'")
         if config.loss.vgg_mult > 0.0:
             self.vgg_loss = VGGPerceptualLossPix2Pix()
 
@@ -253,29 +279,37 @@ class NeuRadarModel(nn.Module):
             spher = layout.radar(ray_bundle.metadata["directions_spher"]).reshape(ns, nr, 2)
             geometry = spherical_to_cartesian(depth, spher[..., 1:2], spher[..., 0:1])
             with record_function("radar_decoder"):
-                outputs["radar_output"], outputs["radar_angles"] = self._decode_radar(
-                    radar_feats.reshape(ns, nr, radar_feats.shape[-1]), geometry, generator if train else None)
+                decoded = self._decode_radar(radar_feats.reshape(ns, nr, radar_feats.shape[-1]), geometry,
+                                             generator if train else None)
+            outputs["radar_output"], outputs["radar_angles"] = decoded[:2]
+            if len(decoded) == 3:  # the set decoder's intermediate layers, [D-1, ns, Q, 7]
+                outputs["radar_aux_outputs"] = decoded[2]
         return outputs
 
     def _decode_radar(self, feats: torch.Tensor, geometry: torch.Tensor, generator: Optional[torch.Generator]):
         """The radar decoder over [ns, nr] tokens in ``radar_decode_chunks`` groups of scans
-        (attention never crosses scans); with gradients each group is recomputed in the backward
-        pass. The training draws are made for all scans first and sliced per group."""
+        (attention never crosses scans). With gradients each group of the per-ray decoder is
+        recomputed in the backward pass, as the JAX package remats it; the set decoder keeps its
+        activations, as the JAX package does (its cross-attention weights are [g, Q, nr] a layer).
+        The training draws are made for all scans first and sliced per group. Returns the outputs
+        concatenated over the groups: scans on axis 0, the set decoder's intermediate layers on
+        axis 1."""
         ns, nr = feats.shape[:2]
         decoder = self.radar_decoder
-        noise = decoder.draw_noise(ns, nr, generator, feats.device) if generator is not None else None
         n_groups = radar_decode_groups(ns, self.config.radar_decode_chunks)
+        noise = decoder.draw_noise(ns, nr, generator, feats.device, n_groups) if generator is not None else None
         if n_groups == 1:
             return decoder.decode(feats, geometry, noise)
         g = ns // n_groups
+        remat = torch.is_grad_enabled() and isinstance(decoder, RadarDecoder)
         outs = []
         for i in range(0, ns, g):
             args = (feats[i:i + g], geometry[i:i + g], decoder.slice_noise(noise, i, i + g) if noise else None)
-            if torch.is_grad_enabled():
+            if remat:
                 outs.append(checkpoint(decoder.decode, *args, use_reentrant=False, preserve_rng_state=False))
             else:
                 outs.append(decoder.decode(*args))
-        return torch.cat([o[0] for o in outs]), torch.cat([o[1] for o in outs])
+        return tuple(torch.cat([o[j] for o in outs], dim=0 if j < 2 else 1) for j in range(len(outs[0])))
 
     def decode_camera_features(self, features: torch.Tensor, patch_size: Tuple[int, int]) -> torch.Tensor:
         """Rendered features [h*w, C] -> rgb [1, h*u, w*u, 3] through the upsampling CNN."""
@@ -460,10 +494,24 @@ class NeuRadarModel(nn.Module):
                     loss_dict[f"carving_loss_{i}"] = prop_c_mult * outputs[f"prop_carving_sq_sum_{i}"] / n_lidar
 
         if "radar_output" in outputs and "radar_gt" in batch:
-            radar_loss, _ = radar_utils.calculate_radar_loss(
-                batch["radar_gt"], batch["radar_gt_mask"], outputs["radar_output"], training=train)
+            gt, gt_mask = batch["radar_gt"], batch["radar_gt_mask"]
+            if cfg.radar_decoder_type == "set" and conf.radar_set_loss == "detr":
+                def radar_loss_fn(pred):
+                    return radar_utils.detr_set_loss(gt, gt_mask, pred, assignment=conf.radar_assignment)
+            else:
+                def radar_loss_fn(pred):
+                    return radar_utils.calculate_radar_loss(gt, gt_mask, pred, loss_type=conf.radar_loss_type,
+                                                            training=train, assignment=conf.radar_assignment)
+
+            radar_loss, _ = radar_loss_fn(outputs["radar_output"])
             metrics["radar_loss"] = radar_loss.detach()
             loss_dict["radar_loss"] = conf.radar_mult * radar_loss
+            if train and "radar_aux_outputs" in outputs:
+                # deep supervision: each intermediate set-decoder layer pays the same loss at full weight
+                aux_total = 0.0
+                for aux in outputs["radar_aux_outputs"]:
+                    aux_total = aux_total + radar_loss_fn(aux)[0]
+                loss_dict["radar_aux_loss"] = conf.radar_mult * aux_total
 
         if train:
             n = cfg.num_proposal_rounds

@@ -164,8 +164,8 @@ class ADNeuRadarPipeline:
 
     @torch.inference_mode()
     def render_radar(self, scan_idx: Union[int, Sequence[int]]) -> Dict[str, torch.Tensor]:
-        """Multi-Bernoulli radar output: [n_mb, 7] for one scan index, or
-        [n_scans, n_mb, 7] for a sequence rendered as one batch."""
+        """Multi-Bernoulli radar output: [n_mb, 7] for one scan index, or [n_scans, n_mb, 7] for a
+        sequence rendered as one batch; n_mb is the scan's rays, or the set decoder's queries."""
         single = isinstance(scan_idx, (int, np.integer))
         ids = torch.as_tensor([scan_idx] if single else list(scan_idx), dtype=torch.long, device=self.device)
         radars = self.tables.radars
@@ -247,11 +247,13 @@ class ADNeuRadarPipeline:
         self, sampling_rounds: Optional[int] = None,
         draw: Optional[Callable[[int], Tuple[torch.Tensor, torch.Tensor]]] = None,
     ) -> Dict[str, float]:
-        """Chamfer, EMD and GOSPA over the eval radar scans, each scan sampled ``sampling_rounds``
-        times ('nll' sampling, the port's radar loss). ``draw(n_mb)`` returns one round's uniforms;
-        by default they come from a CPU generator seeded 0, so the card and the CPU draw alike."""
-        rounds = sampling_rounds or self.config.radar_sampling_rounds
-        if draw is None:
+        """Chamfer, EMD and GOSPA over the eval radar scans, sampled as ``loss.radar_loss_type`` says:
+        'nll' draws each scan ``sampling_rounds`` times (default ``radar_sampling_rounds``), and
+        ``draw(n_mb)`` returns one round's uniforms, by default from a CPU generator seeded 0, so the
+        card and the CPU draw alike; 'euclidean' is deterministic, one round by default."""
+        loss_type = self.config.model.loss.radar_loss_type
+        rounds = sampling_rounds or (self.config.radar_sampling_rounds if loss_type == "nll" else 1)
+        if draw is None and loss_type == "nll":
             gen = torch.Generator().manual_seed(0)
             draw = lambda n_mb: radar_utils.nll_uniforms(n_mb, gen)  # noqa: E731
         chamfers, emds, gospas, locs, misses, falses = ([] for _ in range(6))
@@ -262,7 +264,8 @@ class ADNeuRadarPipeline:
             gt = self.outputs.radar_points[scan_idx][:, :3]
             for _ in range(rounds):
                 pts, keep = radar_utils.sample_radar_points(
-                    ro, "nll", draw(ro.shape[0]), threshold=self.config.model.existence_probability_threshold)
+                    ro, loss_type, draw(ro.shape[0]) if loss_type == "nll" else None,
+                    threshold=self.config.model.existence_probability_threshold)
                 pred = pts[keep].numpy()
                 if len(pred) and len(gt):
                     chamfers.append(radar_utils.chamfer_distance_np(pred, gt))

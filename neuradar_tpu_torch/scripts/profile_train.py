@@ -1,7 +1,10 @@
 """Profile the port's neuradar-synthetic train step at full width on one GPU.
 
     python -m neuradar_tpu_torch.scripts.profile_train [--nff-chunks 1] [--compute-dtype bfloat16]
-        [--radar-decode-chunks 4] [--steps 5] [--out FILE]
+        [--radar-decode-chunks 4] [--steps 5] [--out FILE] [--path.to.field value]...
+
+Dotted overrides after the flags change the preset as scripts/train.py's do (for the set radar
+decoder: ``--pipeline.model.radar_decoder_type set --pipeline.model.loss.radar_set_loss detr``).
 
 Builds the seeded trainer at the preset's full width and batch, runs one
 warm-up step, times ``--steps`` untraced steps (host clock around a
@@ -35,6 +38,7 @@ import time
 import torch
 from torch.profiler import ProfilerActivity, profile
 
+from neuradar_tpu_torch.configs.cli import parse_overrides
 from neuradar_tpu_torch.configs.method_configs import method_configs
 from neuradar_tpu_torch.engine.trainer import Trainer
 
@@ -100,7 +104,7 @@ def main(argv=None) -> int:
     ap.add_argument("--radar-decode-chunks", type=int, default=None, help="default: the model's (4)")
     ap.add_argument("--top", type=int, default=25)
     ap.add_argument("--out", default=None)
-    args = ap.parse_args(argv)
+    args, overrides = ap.parse_known_args(argv)
     if not torch.cuda.is_available():
         print("profile_train: no CUDA device", file=sys.stderr)
         return 1
@@ -113,12 +117,13 @@ def main(argv=None) -> int:
     cfg.pipeline.model.compute_dtype = args.compute_dtype
     if args.radar_decode_chunks is not None:
         cfg.pipeline.model.radar_decode_chunks = args.radar_decode_chunks
+    parse_overrides(cfg, overrides)
     trainer = Trainer(cfg, cfg.dataparser.setup().get_dataparser_outputs(), "cuda")
     trainer.setup()
     rays = trainer.pipeline.layout.total
     record = {"card": smi, "rays_per_step": rays, "nff_chunks": args.nff_chunks,
               "compute_dtype": args.compute_dtype,
-              "radar_decode_chunks": cfg.pipeline.model.radar_decode_chunks,
+              "radar_decode_chunks": cfg.pipeline.model.radar_decode_chunks, "overrides": overrides,
               "warmup_s": _step(trainer)}
     torch.cuda.reset_peak_memory_stats()
     walls = [_step(trainer) for _ in range(args.steps)]

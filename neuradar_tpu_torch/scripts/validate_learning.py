@@ -11,7 +11,10 @@ value] curves, with the keys of the JAX package's curves, to ``--curve-output``.
 (CPU-speed shapes: 512 rays a step, small hash tables, a shrunk radar FoV), ``micro`` (~6.6k rays),
 ``small`` (a quarter batch), ``full``. It trains on the card unless ``--device`` says otherwise.
 As the JAX package's check: ``compute_dtype`` bfloat16 by default (the dtype of its banked curve),
-the VGG loss off.
+the VGG loss off. ``--set-decoder`` trains the DETR-style set radar decoder (``radar_decoder_type``
+"set", with the multi-Bernoulli loss, ``radar_set_loss`` "mb"); ``--radar-assignment hungarian``
+associates the radar points by scipy's exact Hungarian on the host instead of the auction. The
+report and the curves record both.
 """
 
 from __future__ import annotations
@@ -42,6 +45,10 @@ def main(argv=None) -> int:
     parser.add_argument("--device", default="cuda")
     parser.add_argument("--bf16", action=argparse.BooleanOptionalAction, default=True,
                         help="--no-bf16 runs the check in float32")
+    parser.add_argument("--set-decoder", action="store_true",
+                        help="the DETR-style set radar decoder (radar_decoder_type 'set')")
+    parser.add_argument("--radar-assignment", choices=("auction", "hungarian"), default=None,
+                        help="the radar association (default: the model's, 'auction')")
     args = parser.parse_args(argv)
 
     from neuradar_tpu_torch.data.datamanager import ADDataManagerConfig
@@ -63,6 +70,10 @@ def main(argv=None) -> int:
         m.sampling.num_proposal_samples = (16, 8)
         m.sampling.num_nerf_samples = 6
         m.nff_chunks = 1
+    if args.set_decoder:
+        m.radar_decoder_type = "set"
+    if args.radar_assignment:
+        m.loss.radar_assignment = args.radar_assignment
     cfg = TrainerConfig(
         pipeline=pipe,
         max_num_iterations=args.iters,
@@ -98,7 +109,7 @@ def main(argv=None) -> int:
     def series(key):
         return [(e["step"], e[key]) for e in events if key in e]
 
-    report = {}
+    report = {"set_decoder": args.set_decoder, "radar_assignment": m.loss.radar_assignment}
     for key, direction in (("loss", -1), ("psnr", 1), ("depth_loss", -1), ("radar_loss", -1)):
         vals = series(key)
         if len(vals) < 4:
@@ -114,6 +125,7 @@ def main(argv=None) -> int:
         curve_path = Path(args.curve_output or run_dir / "learning_curve.json")
         curve_doc = {"scale": args.scale, "iters": args.iters, "dtype": m.compute_dtype,
                      "eval_every": args.eval_every, "device": str(trainer.device),
+                     "set_decoder": args.set_decoder, "radar_assignment": m.loss.radar_assignment,
                      "curves": {k: series(k) for k in curve_keys}}
         curve_path.write_text(json.dumps(curve_doc))
         report["curve_output"] = str(curve_path)

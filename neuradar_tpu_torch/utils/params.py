@@ -21,6 +21,7 @@ from torch import nn
 
 from neuradar_tpu_torch.field_components.encodings import HashEncoding
 from neuradar_tpu_torch.fields.neurad_field import SigmoidDensity
+from neuradar_tpu_torch.model_components.radar_decoder import SetRadarDecoder
 from neuradar_tpu_torch.model_components.vgg import Vgg19Features
 
 # flax's truncated-normal variance scaling divides by the std of a standard
@@ -65,6 +66,8 @@ def init_params(model: nn.Module, seed: int = 0) -> None:
             module.hash_table.uniform_(-1.0, 1.0, generator=gen).mul_(module.hash_init_scale)
         elif isinstance(module, SigmoidDensity):
             module.beta.fill_(module.init_beta)
+        elif isinstance(module, SetRadarDecoder):
+            module.query_embed.normal_(0.0, 1.0, generator=gen)  # flax's normal(1.0)
 
 
 def _copy(dst: torch.Tensor, src: np.ndarray, where: str) -> None:
@@ -76,7 +79,8 @@ def _copy(dst: torch.Tensor, src: np.ndarray, where: str) -> None:
 
 def _load_layer(module: nn.Module, p: Mapping, stats: Optional[Mapping], where: str) -> None:
     if isinstance(module, nn.Linear):
-        # Dense [in, out], and DenseGeneral [in, H, Dh] / [H, Dh, out] of multi-head attention
+        # Dense [in, out], and DenseGeneral [in, H, Dh] / [H, Dh, out] of multi-head attention (K2's
+    # encoder attention and the set decoder's self- and cross-attention)
         kernel = np.asarray(p["kernel"]).reshape(module.in_features, module.out_features)
         _copy(module.weight, kernel.T, where + ".kernel")
         _copy(module.bias, np.asarray(p["bias"]).reshape(-1), where + ".bias")

@@ -86,10 +86,10 @@ def _pin_association(mp, pinned):
             gt, gt_mask, radar_output, assigned)
         return jnp.mean(losses), assigned
 
-    def t_loss(gt, gt_mask, radar_output, training=True):
+    def t_loss(gt, gt_mask, radar_output, loss_type="nll", training=True, assignment="auction"):
         cost = t_ru.radar_cost_matrix(gt, gt_mask, torch.from_numpy(pinned).to(gt.device), "euclidean")
-        assigned = t_ru.auction_assignment(cost, gt_mask)
-        return torch.mean(t_ru.radar_scan_loss(gt, gt_mask, radar_output, assigned)), assigned
+        assigned = t_ru.solve_assignment(cost, gt_mask, assignment)
+        return torch.mean(t_ru.radar_scan_loss(gt, gt_mask, radar_output, assigned, loss_type)), assigned
 
     mp.setattr(j_ru, "calculate_radar_loss", j_loss)
     mp.setattr(t_ru, "calculate_radar_loss", t_loss)

@@ -391,7 +391,8 @@ def test_checkpoint_round_trip_and_resume(pipelines, tmp_path):  # noqa: F811
 
 def test_port_imports_without_jax():
     """Every module of the port, its scripts and chip_smoke.py import with jax, flax, neuradar_tpu,
-    PIL and matplotlib blocked."""
+    PIL and matplotlib blocked; so do the set radar decoder and its losses, and the set decoder's
+    model builds and decodes a scan."""
     code = (
         "import sys, pkgutil, importlib\n"
         "for name in ('jax', 'jaxlib', 'flax', 'optax', 'neuradar_tpu', 'PIL', 'matplotlib'):\n"
@@ -401,6 +402,13 @@ def test_port_imports_without_jax():
         "for name in names:\n"
         "    importlib.import_module(name)\n"
         "import chip_smoke\n"
+        "import torch\n"
+        "from neuradar_tpu_torch.model_components.radar_decoder import MultiHeadAttention, SetRadarDecoder, "
+        "TransformerDecoderLayer\n"
+        "from neuradar_tpu_torch.model_components.radar_utils import detr_set_loss, hungarian_assignment, "
+        "solve_assignment\n"
+        "out = SetRadarDecoder(48, num_queries=8, aux_loss=True)(torch.randn(1, 20, 48), torch.randn(1, 20, 3))\n"
+        "assert [tuple(o.shape) for o in out] == [(1, 8, 7), (1, 8, 2), (1, 1, 8, 7)]\n"
         "print(len(names))\n"
     )
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=120)

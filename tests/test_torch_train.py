@@ -223,7 +223,7 @@ def test_radar_loss(training, seed):
 
     (want, want_assign), want_g = jax.value_and_grad(j_loss, has_aux=True)(pred)
     tp = torch.from_numpy(pred).requires_grad_(True)
-    got, got_assign = t_radar.calculate_radar_loss(torch.from_numpy(gt), torch.from_numpy(mask), tp, training)
+    got, got_assign = t_radar.calculate_radar_loss(torch.from_numpy(gt), torch.from_numpy(mask), tp, "nll", training)
     got.backward()
     np.testing.assert_array_equal(_np(got_assign), np.asarray(want_assign))
     _close(got, want, name="radar loss")
