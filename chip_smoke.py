@@ -34,7 +34,11 @@ Phases, one line each before the final JSON line:
      library call and the tensor-core bound of the design's bf16 passes;
      and the same four at the shapes of the set decoder's train path
      (train_set: its encoder is the same transformer, so K2 gets the same
-     decode group);
+     decode group); and those of the paper's presets: train_neuradar and
+     train_neurad (K1 at one of 8 chunks of their batches, K2 at bf16 on
+     neuradar's), render_neuradar (K1 forward at one of 8 chunks of a
+     32,768-ray render chunk) and render_radar_neuradar (K1 forward on one
+     scan's 3,531 rays, K2 at bf16 on one scan, no dropout);
   4. render: the neuradar-synthetic model at full width with seeded random
      weights renders 2 camera frames at 720 x 1296, one 16,384-ray lidar scan
      and 4 radar scans (decoded in the model's 4 groups of 1 scan, the shape of
@@ -62,6 +66,28 @@ Phases, one line each before the final JSON line:
      (radar_aux_loss among them) and Hungarian host time; every parameter
      group, query_embed among them, must have changed, and K1 and K2 at
      bf16 must have launched forward and backward;
+  6c. train_presets: the paper's presets of the port's registry, neuradar
+     (bf16, 8 chunks, the VGG loss, camera optimizer off) and neurad (the SO3xR3
+     camera optimizer on, no radar), each built as scripts/train.py builds it
+     and trained by a Trainer on explicit dataparser outputs: the synthetic
+     scene in ZOD's front camera (FISHEYE, six distortion coefficients, 3848 x
+     1418 after the hood crop; the images rendered coarse and repeated up to
+     that size), 3 steps at the preset's full batch (113,840 and 57,344 rays);
+     neuradar then takes an eval loss, renders an eval frame (1282 x 472 rays
+     at the x3 upsample) and a radar scan; step seconds, rays/s, peak memory,
+     the ray generation's device and call ms for the eval frame and for a
+     sampled batch's camera rays, and the card's name and power limit; the
+     launches are counted apart for the train steps with the eval loss
+     (train_<preset>), neuradar's eval frame (render_neuradar) and its radar
+     scan (render_radar_neuradar); K1 must launch on both presets, K2 at
+     bf16 on neuradar alone, the float32 K2 on neither; the eval frame runs
+     K1 forward alone, the radar scan K1 and K2 at bf16 forward;
+     neurad's camera_opt group must have changed and its regularizer be
+     finite. train_presets_agreement: neurad's model (float32) on a tiny scene
+     in the fisheye with distortion and a rolling shutter, the camera
+     optimizer away from zero, one train step card against CPU by the rules
+     of the agreement phase below (loss terms, every gradient,
+     pose_adjustment's among them);
   7. agreement: a tiny scene rendered, and one tiny train step (loss terms and
      every gradient), through the kernels on the card against the plain
      versions on the CPU, with the same weights and the same random draws; and
@@ -106,13 +132,20 @@ import sys
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
-from neuradar_tpu_torch.configs.bench_program import bench_pipeline_config, bench_scene_outputs
+from neuradar_tpu_torch.cameras.cameras import CameraType, generate_camera_rays
+from neuradar_tpu_torch.configs.bench_program import (
+    ZOD_DIST,
+    bench_pipeline_config,
+    bench_scene_outputs,
+    zod_camera_scene_outputs,
+)
 from neuradar_tpu_torch.configs.cli import parse_overrides
 from neuradar_tpu_torch.configs.method_configs import get_method, method_configs
-from neuradar_tpu_torch.data.datamanager import ADDataManagerConfig
+from neuradar_tpu_torch.data.datamanager import ADDataManagerConfig, batch_to_device
 from neuradar_tpu_torch.data.dataparsers.synthetic import SyntheticDataParser, SyntheticDataParserConfig
 from neuradar_tpu_torch.engine.optimizers import default_optimizer_groups
 from neuradar_tpu_torch.engine.trainer import Trainer, TrainerConfig
@@ -209,6 +242,10 @@ SET_ARGV = ["--pipeline.model.compute_dtype", "bfloat16", "--pipeline.model.nff_
             "--pipeline.model.radar_decode_chunks", "4"]
 SET_AUCTION_STEPS = 3  # then one step with the host's Hungarian
 FULL_BATCH_RAYS = 113840
+# the paper's presets of the registry, trained on the synthetic scene in ZOD's front camera
+# (configs/bench_program.zod_camera_scene_outputs)
+PRESETS = ("neuradar", "neurad")
+PRESET_STEPS = 3
 
 
 def phase(label: str, /, **fields) -> None:
@@ -265,13 +302,17 @@ def _group_scans(model_config, num_scans: int) -> int:
     return num_scans // radar_decode_groups(num_scans, model_config.radar_decode_chunks)
 
 
-def _bf16_path_rows(gen, device, path: str, model_config, num_scans: int, rate: float, seed: int) -> list:
-    """The kernels of a bf16 train path against their plain versions: K1 forward and backward at one of
-    the per-ray core's chunks (K1 takes float32 there), and K2 at bf16 at one radar decode group of
-    the ZOD FoV's scans (d_model 48) with dropout ``rate``."""
+def _bf16_path_rows(gen, device, path: str, model_config, num_scans: int, rate: float, seed: int,
+                    rays: int = FULL_BATCH_RAYS, backward: bool = True) -> list:
+    """The kernels of a bf16 path against their plain versions: K1 forward and backward at one of the
+    per-ray core's chunks of ``rays`` (K1 takes float32 there; the model chunks only a batch that
+    the chunk count divides), and, where the path decodes radar scans, K2 at bf16 at one radar
+    decode group of the ZOD FoV's scans (d_model 48) with dropout ``rate``. A render path
+    (``backward`` False) runs the forward kernels alone."""
     rows = []
     k1 = {"route": "cuda", "source": "neuradar_tpu_torch/csrc/composite_sky.cu"}
-    R, S1, C = FULL_BATCH_RAYS // model_config.nff_chunks, 33, 32
+    chunks = model_config.nff_chunks if rays % model_config.nff_chunks == 0 else 1
+    R, S1, C = rays // chunks, 33, 32
     alpha = torch.rand((R, S1), generator=gen, device=device)
     feats = torch.randn((R, S1, C), generator=gen, device=device)
     got = [t.double() for t in composite_sky_fwd(alpha, feats)]
@@ -281,17 +322,21 @@ def _bf16_path_rows(gen, device, path: str, model_config, num_scans: int, rate: 
                  "path": path, "shape": [R, S1, C], "max_abs_err": _max_err(got, want),
                  **_times(lambda: composite_sky_fwd(alpha, feats), lambda: composite_sky_reference(alpha, feats)),
                  **_bound(4 * (R * S1 * (C + 2) + R * (C + 1)), R * S1 * (2 * C + 8))})
-    cots = (torch.randn((R, S1), generator=gen, device=device), torch.randn((R, C), generator=gen, device=device),
-            torch.randn((R, 1), generator=gen, device=device))
-    got, want = composite_sky_bwd(alpha, feats, *cots), composite_sky_bwd_reference(alpha, feats, *cots)
-    _assert_all_close(got, want, K1_BWD_TOL, f"K1 bwd {path}")
-    rows.append({"name": "composite_sky_bwd", **k1, "replaces": "neuradar_tpu/ops/volumetric.py:125",
-                 "path": path, "shape": [R, S1, C], "design": composite_sky_bwd_path(feats, cots[1]),
-                 "max_abs_err": _max_err(got, want),
-                 **_times(lambda: composite_sky_bwd(alpha, feats, *cots),
-                          lambda: composite_sky_bwd_reference(alpha, feats, *cots), plain_syncs=True),
-                 **_bound(4 * (2 * R * S1 * C + 3 * R * S1 + R * C + R), R * S1 * (3 * C + 12))})
-    del alpha, feats, cots, got, want
+    if backward:
+        cots = (torch.randn((R, S1), generator=gen, device=device),
+                torch.randn((R, C), generator=gen, device=device), torch.randn((R, 1), generator=gen, device=device))
+        got, want = composite_sky_bwd(alpha, feats, *cots), composite_sky_bwd_reference(alpha, feats, *cots)
+        _assert_all_close(got, want, K1_BWD_TOL, f"K1 bwd {path}")
+        rows.append({"name": "composite_sky_bwd", **k1, "replaces": "neuradar_tpu/ops/volumetric.py:125",
+                     "path": path, "shape": [R, S1, C], "design": composite_sky_bwd_path(feats, cots[1]),
+                     "max_abs_err": _max_err(got, want),
+                     **_times(lambda: composite_sky_bwd(alpha, feats, *cots),
+                              lambda: composite_sky_bwd_reference(alpha, feats, *cots), plain_syncs=True),
+                     **_bound(4 * (2 * R * S1 * C + 3 * R * S1 + R * C + R), R * S1 * (3 * C + 12))})
+        del cots
+    del alpha, feats, got, want
+    if num_scans == 0:
+        return rows
 
     k2b = {"route": "cuda", "source": "neuradar_tpu_torch/csrc/attention_bf16.cu"}
     B, S, D = _group_scans(model_config, num_scans), 3531, 48
@@ -304,17 +349,22 @@ def _bf16_path_rows(gen, device, path: str, model_config, num_scans: int, rate: 
     torch.testing.assert_close(out32, want32, **K2_OUT32_TOL, msg=lambda m: f"K2 bf16 fwd out32: {m}")
     again = self_attention_fwd(qb, kb, vb, rate, seed, return_lse=True, return_out32=True)
     _expect(all(torch.equal(a, b) for a, b in zip(again, (out, lse, out32))), "K2 bf16 fwd: two launches differ")
+    # timed as the path calls it: a train path keeps lse and out32 for the backward, a render path
+    # writes the bf16 output alone
+    extra = dict(return_lse=True, return_out32=True) if backward else {}
     rows.append({"name": "self_attention_bf16_fwd", **k2b, "replaces": "neuradar_tpu/ops/attention.py:176",
                  "path": path, "shape": [B, S, D], "dtype": "bfloat16", "dropout": rate,
                  "max_abs_err": float((out.float() - want32.to(bf).float()).abs().max()),
                  "max_abs_err_out32": float((out32 - want32).abs().max()),
-                 **_times(lambda: self_attention_fwd(qb, kb, vb, rate, seed, return_lse=True, return_out32=True),
+                 **_times(lambda: self_attention_fwd(qb, kb, vb, rate, seed, **extra),
                           lambda: attention_reference(qb, kb, vb, seed, rate),
                           lambda: F.scaled_dot_product_attention(qb[:, None], kb[:, None], vb[:, None],
                                                                  dropout_p=rate)),
-                 # q, k, v in bf16; out in bf16, out32 and lse in float32
-                 **_k2_bf16_bound(2 * 3 * B * S * D + 2 * B * S * D + 4 * (B * S * D + B * S), 4 * B * S * S * D,
-                                  K2_BF16_FWD_PASSES, B, S, D)})
+                 # q, k, v in bf16; out in bf16, out32 and lse in float32 where the path keeps them
+                 **_k2_bf16_bound(2 * 3 * B * S * D + 2 * B * S * D + (4 * (B * S * D + B * S) if backward else 0),
+                                  4 * B * S * S * D, K2_BF16_FWD_PASSES, B, S, D)})
+    if not backward:
+        return rows
     got = self_attention_bwd(qb, kb, vb, out32, dob, lse, rate, seed)
     want = attention_bwd_reference(qb, kb, vb, dob, seed, rate)
     _assert_all_close(got, want, K2_BF16_BWD_TOL, "K2 bf16 bwd")
@@ -426,6 +476,20 @@ def check_kernels(device: torch.device) -> list:
     rows += _bf16_path_rows(gen, device, "train_bf16", bench.model, bench.datamanager.num_radar_scans, rate, seed)
     set_cfg = _set_config().pipeline
     rows += _bf16_path_rows(gen, device, "train_set", set_cfg.model, set_cfg.datamanager.num_radar_scans, rate, seed)
+    # the paper's presets: neuradar at its full batch (bf16, 8 chunks, radar in 4 groups) and neurad
+    # (no radar: 57,344 rays in 8 chunks, K1 alone)
+    for name in PRESETS:
+        pcfg = get_method(name).pipeline
+        dm = pcfg.datamanager
+        rays = dm.num_rgb_patches * dm.patch_size**2 + dm.num_lidar_rays + dm.num_radar_scans * 3531
+        rows += _bf16_path_rows(gen, device, f"train_{name}", pcfg.model, dm.num_radar_scans, rate, seed, rays)
+    # neuradar's eval frame (render chunks of eval_num_rays_per_chunk rays, each in the preset's nff
+    # chunks) and its radar scan (one scan of the ZOD FoV: its rays in one chunk, one decode group),
+    # without dropout
+    pm = get_method("neuradar").pipeline.model
+    rows += _bf16_path_rows(gen, device, "render_neuradar", pm, 0, 0.0, seed, pm.eval_num_rays_per_chunk,
+                            backward=False)
+    rows += _bf16_path_rows(gen, device, "render_radar_neuradar", pm, 1, 0.0, seed, 3531, backward=False)
 
     # K3 at a render chunk's shape with sample midpoints, against its plain version in float64 (as K1)
     R, S, C = 32768, 33, 32
@@ -703,6 +767,126 @@ def train_set(device: torch.device) -> dict:
             "eval_radar_metrics": {"seconds": metrics_s, **radar_metrics}}
 
 
+def _ray_generation(cameras, ids: torch.Tensor, coords: torch.Tensor) -> dict:
+    """generate_camera_rays for the pixels ``coords`` of the cameras ``ids``: the device time of its
+    kernels (it launches hundreds of small ones a call, so the profiler's kernel sum, not a queue
+    behind a spin) and one call's time with its host work."""
+
+    def gen():
+        return generate_camera_rays(cameras, ids, coords)
+
+    return {"rays": int(coords.shape[0]), "device_ms": kernels_ms(gen), "call_ms": call_ms(gen, reps=5)}
+
+
+def _zero_counts() -> None:
+    for k in COUNTED_KERNELS:
+        k.launches = 0
+
+
+def _counts() -> dict:
+    return {k.__name__: k.launches for k in COUNTED_KERNELS}
+
+
+def train_preset(device: torch.device, name: str, scene) -> dict:
+    """The preset ``name`` of the port's registry, built as scripts/train.py builds it and trained by a
+    Trainer on ``scene`` (explicit dataparser outputs) for PRESET_STEPS steps at its full width and
+    batch; neuradar then takes an eval loss, renders an eval frame through render_camera and one radar
+    scan. Step seconds, rays/s, peak memory and the loss terms; with the camera optimizer on, its
+    group must have changed and its regularizer be finite. The kernels' launches are counted apart
+    for the train steps with the eval loss (path train_<name>, the train batch's shapes), the eval
+    frame (render_<name>) and the radar scan (render_radar_<name>)."""
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    cfg = get_method(name)
+    cfg.steps_per_eval_batch = cfg.steps_per_eval_image = cfg.steps_per_eval_all_images = 0
+    cfg.steps_per_eval_all_radars = cfg.steps_per_save = 0
+    cfg.save_final_checkpoint = False
+    cfg.output_dir = f"chiprun_out/train_{name}"
+    trainer = Trainer(cfg, scene, device)
+    trainer.setup()
+    layout = trainer.pipeline.layout
+    m = cfg.pipeline.model
+    torch.cuda.synchronize()
+    setup = {"seconds": time.perf_counter() - t0, "rays_per_step": layout.total, "camera_rays": layout.num_cam,
+             "lidar_rays": layout.num_lidar, "radar_scans": layout.num_radar_scans, "compute_dtype": m.compute_dtype,
+             "nff_chunks": m.nff_chunks, "vgg_mult": m.loss.vgg_mult, "camera_optimizer": m.camera_optimizer.mode,
+             "image_size": list(scene.image_size), "camera_types": torch.unique(trainer.pipeline.tables.cameras.camera_type).tolist()}
+    phase(f"train_{name}_setup", **setup)
+    groups = _param_groups(trainer)
+    before = {g: [p.detach().clone() for p in ps] for g, ps in groups.items()}
+    steps = []
+    _zero_counts()
+    for step in range(PRESET_STEPS):
+        torch.cuda.reset_peak_memory_stats()
+        (losses, metrics), dt = _timed(trainer.train_step)
+        values = {k: float(v) for k, v in losses.items()}
+        steps.append({"step": step, "seconds": dt, "rays_per_s": layout.total / dt,
+                      "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30})
+        phase(f"train_{name}_step", **steps[-1], finite=_finite_dict(values), losses=values,
+              metrics={k: float(v) for k, v in metrics.items()})
+        _expect(_finite_dict(values), f"{name} train step {step}: a loss term is not finite: {values}")
+        _expect(("camera_opt_regularizer" in values) == (m.camera_optimizer.mode != "off"),
+                f"{name}: camera_opt_regularizer {sorted(values)}")
+    eval_report = {}
+    if name == "neuradar":
+        (losses, _), eval_s = _timed(trainer.eval_loss)
+        eval_values = {k: float(v) for k, v in losses.items()}
+        _expect(_finite_dict(eval_values), f"{name} eval loss not finite: {eval_values}")
+        eval_report["eval_loss"] = {"seconds": eval_s, "losses": eval_values}
+    launches = {f"train_{name}": _counts()}
+    changed = {g: any(not torch.equal(p, q) for p, q in zip(groups[g], before[g])) for g in groups}
+    phase(f"train_{name}_params_changed", groups=changed)
+    if m.camera_optimizer.mode != "off":
+        _expect(changed.get("camera_opt", False), f"{name}: the camera_opt group did not change: {changed}")
+    median = sorted(st["seconds"] for st in steps)[len(steps) // 2]
+    report = {"setup": setup, "steps": steps, "median_step_s": median, "rays_per_s_median": layout.total / median,
+              "peak_mem_gb": max(st["peak_mem_gb"] for st in steps), "params_changed": changed, **eval_report}
+    pipe = trainer.pipeline
+    cams = pipe.tables.cameras
+    # ray generation through the fisheye's Newton undistortion: a sampled batch's camera rays (the
+    # preset's patches at the train batch's layout, one ray a u x u block, as build_train_bundle
+    # places them; the eval split, so that the train sampler's draws stay as they were) and an eval
+    # frame's rays (one a u x u block)
+    u = m.rgb_upsample_factor
+    H, W = scene.image_size
+    rr, cc = torch.meshgrid(torch.arange(H // u, device=device) * u + u // 2,
+                            torch.arange(W // u, device=device) * u + u // 2, indexing="ij")
+    frame = torch.stack([rr.reshape(-1), cc.reshape(-1)], dim=1)
+    batch = batch_to_device(pipe.datamanager.sample_eval_batch(), device)
+    ps = layout.patch_size[0]
+    grid = torch.arange(ps, device=device) * u + u // 2
+    gr, gc = torch.meshgrid(grid, grid, indexing="ij")
+    patch = (batch["patch_tl"][:, None, :].long() + torch.stack([gr.reshape(-1), gc.reshape(-1)], -1)[None])
+    report["ray_generation"] = {
+        "eval_frame": _ray_generation(cams, torch.zeros(len(frame), dtype=torch.long, device=device), frame),
+        "batch_camera_rays": _ray_generation(cams, torch.repeat_interleave(batch["cam_frame_idx"].long(), ps * ps),
+                                             patch.reshape(-1, 2))}
+    if name == "neuradar":
+        cam_idx = int(pipe.datamanager.eval_camera_indices()[0])
+        _zero_counts()
+        rend, render_s = _timed(lambda: pipe.render_camera(cam_idx))
+        launches[f"render_{name}"] = _counts()
+        shapes = {k: list(v.shape) for k, v in rend.items()}
+        _expect(all(_finite(v) for v in rend.values()) and shapes["rgb"] == [H // u * u, W // u * u, 3]
+                and shapes["depth"] == [H // u, W // u], f"{name} render_camera: {shapes}")
+        scan = int(pipe.datamanager.eval_radar_indices()[0])
+        _zero_counts()
+        rend_r, radar_s = _timed(lambda: pipe.render_radar(scan))
+        launches[f"render_radar_{name}"] = _counts()
+        ro = rend_r["radar_output"]
+        _expect(list(ro.shape) == [layout.rays_per_scan, 7] and _finite(ro),
+                f"{name} render_radar: {list(ro.shape)}")
+        report.update(render_camera={"seconds": render_s, "cam_idx": cam_idx, "shapes": shapes,
+                                     "rays": (H // u) * (W // u)},
+                      render_radar={"seconds": radar_s, "shape": list(ro.shape)})
+    report["launches"] = launches
+    trainer.shutdown()
+    del trainer, pipe, before, groups
+    torch.cuda.empty_cache()
+    return report
+
+
+
 def _tiny_outputs():
     out = SyntheticDataParser(SyntheticDataParserConfig(
         num_frames=8, image_height=24, image_width=36, lidar_points_per_scan=256)).get_dataparser_outputs()
@@ -712,13 +896,22 @@ def _tiny_outputs():
 
 
 def _tiny_pipeline(device, nff_chunks: int = 1, dtype: str = "float32", vgg: bool = False,
-                   set_loss: str = "") -> ADNeuRadarPipeline:
+                   set_loss: str = "", preset: str = "") -> ADNeuRadarPipeline:
     """The tiny scene and model, radar in 2 groups; without the VGG loss 4-ray patches (12 pixels, too
     small for VGG-19's four pools), with it 8-ray patches (24 pixels). ``set_loss`` ("mb" or "detr")
-    gives it the set radar decoder with TINY_SET_QUERIES queries and deep supervision."""
+    gives it the set radar decoder with TINY_SET_QUERIES queries and deep supervision. ``preset`` takes
+    the model settings and radar scans (none for neurad) of that preset of the registry, and dresses
+    the scene in ZOD's fisheye with its distortion and a rolling shutter."""
     out = _tiny_outputs()
-    cfg = ADNeuRadarPipelineConfig(datamanager=ADDataManagerConfig(
-        num_rgb_patches=2, patch_size=8 if vgg else 4, num_lidar_rays=32, num_radar_scans=2, max_radar_gt=16))
+    cfg = get_method(preset).pipeline if preset else ADNeuRadarPipelineConfig()
+    cfg.datamanager = ADDataManagerConfig(num_rgb_patches=2, patch_size=8 if vgg else 4, num_lidar_rays=32,
+                                          num_radar_scans=cfg.datamanager.num_radar_scans and 2, max_radar_gt=16)
+    if preset:
+        n = len(out.camera_to_worlds)
+        out.camera_type = np.full(n, int(CameraType.FISHEYE))
+        out.distortion_params = np.tile(np.array([ZOD_DIST], np.float32), (n, 1))
+        out.camera_velocities = np.tile(np.array([[5.0, 0.0, 0.0]], np.float32), (n, 1))
+        out.rolling_shutter_offsets = np.tile(np.array([[-0.02, 0.02]], np.float32), (n, 1))
     m = cfg.model
     m.compute_dtype = dtype
     m.radar_decode_chunks = 2
@@ -758,13 +951,22 @@ def check_tiny_agreement(device: torch.device) -> float:
     return worst
 
 
-def check_tiny_train_agreement(device: torch.device, set_loss: str = "") -> dict:
+def check_tiny_train_agreement(device: torch.device, set_loss: str = "", preset: str = "") -> dict:
     """One tiny train step (flips and dropout on, the per-ray core in recomputed chunks) through
     the kernels on the card against the plain versions on the CPU: same weights, same batch, and
     the same random draws, made by a CPU generator with one seed and moved to the card. With
-    ``set_loss`` the set radar decoder's model, its association by the host's Hungarian."""
-    gpu, cpu = (_tiny_pipeline(d, TINY_NFF_CHUNKS, set_loss=set_loss) for d in (device, "cpu"))
+    ``set_loss`` the set radar decoder's model, its association by the host's Hungarian; with
+    ``preset`` that preset's model (float32) on the dressed scene (_tiny_pipeline)."""
+    gpu, cpu = (_tiny_pipeline(d, TINY_NFF_CHUNKS, set_loss=set_loss, preset=preset) for d in (device, "cpu"))
     _expect(gpu.layout.total % TINY_NFF_CHUNKS == 0, f"{gpu.layout.total} rays do not split in chunks")
+    if preset:
+        # the camera optimizer away from its zero start on three frames of four, so both branches of the
+        # exponential map run
+        shape = gpu.model.camera_optimizer.pose_adjustment.shape
+        adj = torch.randn(shape, generator=torch.Generator().manual_seed(3))
+        adj[::4] = 0.0
+        with torch.no_grad():
+            gpu.model.camera_optimizer.pose_adjustment.copy_(0.02 * adj)
     cpu.model.load_state_dict({k: v.cpu() for k, v in gpu.model.state_dict().items()})
     batch = gpu.datamanager.sample_train_batch()
     results = []
@@ -793,7 +995,15 @@ def check_tiny_train_agreement(device: torch.device, set_loss: str = "") -> dict
         torch.testing.assert_close(g, c, rtol=TRAIN_GRAD_RTOL, atol=atol, msg=lambda m, name=name: f"grad {name}: {m}")
         worst_grad = max(worst_grad, err)
     _expect(not set_loss or "radar_aux_loss" in c_losses, f"no radar_aux_loss: {sorted(c_losses)}")
-    return {"nff_chunks": TINY_NFF_CHUNKS, "loss_terms": len(c_losses), "max_abs_err_loss": worst_loss,
+    _expect(not preset or "camera_opt_regularizer" in c_losses, f"no camera_opt_regularizer: {sorted(c_losses)}")
+    extra = {}
+    if preset:  # pose_adjustment's gradient, held with every other above
+        g_pose = gpu.model.camera_optimizer.pose_adjustment.grad.cpu()
+        c_pose = cpu.model.camera_optimizer.pose_adjustment.grad
+        _expect(float(c_pose.abs().max()) > 0, "pose_adjustment has no gradient")
+        extra = {"preset": preset, "pose_adjustment_max_abs_grad": float(c_pose.abs().max()),
+                 "pose_adjustment_max_abs_err": float((g_pose - c_pose).abs().max())}
+    return {**extra, "nff_chunks": TINY_NFF_CHUNKS, "loss_terms": len(c_losses), "max_abs_err_loss": worst_loss,
             "max_abs_err_grad": worst_grad, "loss_tol": TRAIN_LOSS_TOL, "grad_rtol": TRAIN_GRAD_RTOL,
             "grad_atol_floor": TRAIN_GRAD_ATOL_FLOOR, "zero_grad": ZERO_GRAD, "zero_grad_leaves": zero_grad,
             "floor_leaves": floor_grad, "total": float(c_total.detach())}
@@ -1083,6 +1293,26 @@ def main() -> int:
     _expect(self_attention_fwd.launches == 0 and self_attention_bwd.launches == 0,
             "the set decoder's bf16 train path launched the float32 K2")
 
+    scene = zod_camera_scene_outputs()
+    preset_launches = {}
+    for name in PRESETS:
+        t0 = time.perf_counter()
+        report = train_preset(device, name, scene)
+        preset_launches.update(report["launches"])
+        phase("train_presets", preset=name, seconds=time.perf_counter() - t0, gpu=smi.splitlines()[0], **report)
+        got = report["launches"][f"train_{name}"]
+        _expect(got["composite_sky_fwd"] > 0 and got["composite_sky_bwd"] > 0, f"{name}: K1 never launched: {got}")
+        _expect(got["self_attention_fwd"] == 0 and got["self_attention_bwd"] == 0, f"{name} launched the float32 K2")
+        radar = name != "neurad"
+        _expect((got["self_attention_bf16_fwd"] > 0 and got["self_attention_bf16_bwd"] > 0) == radar,
+                f"{name}: K2 at bf16 launches {got}, radar {radar}")
+    for path, kernels in (("render_neuradar", {"composite_sky_fwd"}),
+                          ("render_radar_neuradar", {"composite_sky_fwd", "self_attention_bf16_fwd"})):
+        got = preset_launches[path]
+        _expect(all((n > 0) == (k in kernels) for k, n in got.items()), f"{path}: launches {got}")
+    del scene
+    phase("train_presets_agreement", **check_tiny_train_agreement(device, preset="neurad"))
+
     phase("agreement", max_abs_err=check_tiny_agreement(device), **TINY_TOL)
     phase("train_agreement", **check_tiny_train_agreement(device))
     phase("train_bf16_agreement", **check_tiny_bf16_train_agreement(device))
@@ -1100,7 +1330,7 @@ def main() -> int:
     phase("learning", **learning())
 
     path_launches = {"render": render_launches, "train": launches, "train_bf16": bf16_launches,
-                     "train_set": set_launches}
+                     "train_set": set_launches, **preset_launches}
     for row in rows:
         if row["path"] != "standalone":
             row["launches"] = path_launches[row["path"]][row["name"]]

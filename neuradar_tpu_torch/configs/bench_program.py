@@ -12,12 +12,21 @@ points a scan. The model: compute_dtype bfloat16, ``chunks`` nff chunks recomput
 backward pass, the hash tables cast once a step, no VGG loss (the JAX program has no pretrained
 VGG either). Its remat policies and packed cells wait for the hash-grid encode as one kernel
 (ROADMAP, K4); the TPU roofline constants of the JAX module are not carried over.
+
+``zod_camera_scene_outputs`` is the synthetic scene in ZOD's front camera, the stand-in scene of
+the paper's presets (neuradar, neurad) until a ZOD sequence is at hand:
+
+    trainer = Trainer(get_method("neuradar"), zod_camera_scene_outputs(), "cuda")
 """
 
 from __future__ import annotations
 
+import math
 from typing import Optional
 
+import numpy as np
+
+from neuradar_tpu_torch.cameras.cameras import CameraType
 from neuradar_tpu_torch.data.datamanager import ADDataManagerConfig
 from neuradar_tpu_torch.data.dataparsers.synthetic import SyntheticDataParser, SyntheticDataParserConfig
 from neuradar_tpu_torch.pipelines.ad_neuradar_pipeline import ADNeuRadarPipelineConfig
@@ -30,6 +39,31 @@ _RUNGS = {  # num_rgb_patches, patch_size, num_lidar_rays, num_radar_scans, max_
     "eighth": (5, 32, 2050, 2, 256),
     "micro": (2, 32, 1029, 1, 128),
 }
+
+
+# ZOD's front camera after the hood crop (2168 rows less 750): an equidistant fisheye whose 3848
+# columns span 120 degrees (fx = fy = 1924 / (pi / 3)), the principal point at the uncropped image's
+# centre (the crop removes rows below it), and six OpenCV coefficients (k1 k2 k3 k4 p1 p2) of fisheye
+# strength, those of the JAX package's Newton undistortion test
+ZOD_IMAGE = (2168 - 750, 3848)
+ZOD_INTRINSICS = (1924 / (math.pi / 3), 1924 / (math.pi / 3), 1924.0, 1084.0)
+ZOD_DIST = (-0.2, 0.05, 0.001, 0.0, 0.01, -0.01)
+
+
+def zod_camera_scene_outputs():
+    """The synthetic scene (24 frames, rendered at 96 x 156, seed 0) in ZOD's front camera model:
+    FISHEYE with ZOD_DIST, at ZOD_IMAGE with ZOD_INTRINSICS (fx, fy, cx, cy). The images are rendered
+    on the coarse grid and repeated up to the camera's size (nearest neighbour): their content does
+    not change the work."""
+    out = SyntheticDataParser(SyntheticDataParserConfig()).get_dataparser_outputs()
+    n, (H, W) = len(out.camera_to_worlds), ZOD_IMAGE
+    h, w = out.image_size
+    out.images = out.images[:, (np.arange(H) * h // H)[:, None], (np.arange(W) * w // W)[None, :]]
+    out.image_size = (H, W)
+    out.intrinsics = np.tile(np.array([ZOD_INTRINSICS], np.float32), (n, 1))
+    out.camera_type = np.full(n, int(CameraType.FISHEYE))
+    out.distortion_params = np.tile(np.array([ZOD_DIST], np.float32), (n, 1))
+    return out
 
 
 def bench_scene_outputs():

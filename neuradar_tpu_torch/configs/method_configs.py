@@ -1,16 +1,54 @@
 """Method presets of the port (the JAX package's configs/method_configs.py).
-Only ``neuradar-synthetic`` is ported: the data-free preset, float32, with the
-VGG loss and the camera optimizer off, as in the JAX package."""
+
+``neuradar`` is the paper's preset: ZOD (front fisheye camera, top lidar, front radar) with the
+synthesized non-return lidar points, bf16 in 8 chunks, the VGG loss, the camera optimizer off;
+``neuradar-set`` its set radar decoder. ``neurad`` drops the radar and turns the SO3xR3 camera
+optimizer on; ``neurad-scaleopt`` weights its degrees of freedom; ``neurader`` and ``neuradest``
+train longer (2.5x, 7.5x) at halved rates on finer grids, each with its ``-scaleopt``;
+``neurad-paper`` and ``neurad-2x-paper`` are neurad and neurader with the paper's settings (no
+temporal appearance, no actor flips). ``neuradar-synthetic`` is the data-free preset, float32,
+without the VGG loss. The presets of the parsers the port lacks (VoD, nuScenes, PandaSet,
+KITTI-MOT, Argoverse 2, WOD) are not here.
+"""
 
 from __future__ import annotations
 
 from typing import Callable, Dict
 
+from neuradar_tpu_torch.cameras.camera_optimizers import CameraOptimizerConfig, ScaledCameraOptimizerConfig
 from neuradar_tpu_torch.data.datamanager import ADDataManagerConfig
 from neuradar_tpu_torch.data.dataparsers.synthetic import SyntheticDataParserConfig
+from neuradar_tpu_torch.data.dataparsers.zod import ZodDataParserConfig
 from neuradar_tpu_torch.engine.optimizers import default_optimizer_groups
 from neuradar_tpu_torch.engine.trainer import TrainerConfig
 from neuradar_tpu_torch.pipelines.ad_neuradar_pipeline import ADNeuRadarPipelineConfig
+
+
+def _neuradar() -> TrainerConfig:
+    cfg = TrainerConfig(
+        method_name="neuradar",
+        steps_per_eval_batch=500,
+        steps_per_eval_image=2000,
+        steps_per_eval_all_images=20000,
+        steps_per_eval_all_radars=20000,
+        steps_per_save=10000,
+        max_num_iterations=20001,
+        pipeline=ADNeuRadarPipelineConfig(datamanager=ADDataManagerConfig()),
+        optimizers=default_optimizer_groups(20001),
+        dataparser=ZodDataParserConfig(add_missing_points=True),
+    )
+    cfg.pipeline.model.camera_optimizer = CameraOptimizerConfig(mode="off")
+    cfg.pipeline.model.nff_chunks = 8
+    cfg.pipeline.model.compute_dtype = "bfloat16"
+    return cfg
+
+
+def _neuradar_set() -> TrainerConfig:
+    cfg = _neuradar()
+    cfg.method_name = "neuradar-set"
+    cfg.pipeline.model.radar_decoder_type = "set"
+    cfg.pipeline.model.loss.radar_set_loss = "detr"
+    return cfg
 
 
 def _neuradar_synthetic() -> TrainerConfig:
@@ -30,8 +68,107 @@ def _neuradar_synthetic() -> TrainerConfig:
     return cfg
 
 
-method_configs: Dict[str, Callable[[], TrainerConfig]] = {"neuradar-synthetic": _neuradar_synthetic}
-method_descriptions = {"neuradar-synthetic": "NeuRadar on the built-in synthetic scene (no dataset needed)."}
+def _neurad() -> TrainerConfig:
+    """Camera and lidar: no radar scans, the SO3xR3 camera optimizer on."""
+    cfg = _neuradar()
+    cfg.method_name = "neurad"
+    cfg.pipeline.datamanager.num_radar_scans = 0
+    cfg.pipeline.model.camera_optimizer = CameraOptimizerConfig(mode="SO3xR3")
+    return cfg
+
+
+def _scale_camera_optimizer(cfg: TrainerConfig) -> TrainerConfig:
+    """The *-scaleopt camera optimizer: z rotation and x, y translation weighted down 100x, with a
+    per-axis translation penalty."""
+    cfg.pipeline.model.camera_optimizer = ScaledCameraOptimizerConfig(
+        mode="SO3xR3", weights=(1.0, 1.0, 0.01, 0.01, 0.01, 1.0), trans_l2_penalty=(1e-2, 1e-2, 1e-3))
+    return cfg
+
+
+def _with_name(cfg: TrainerConfig, name: str) -> TrainerConfig:
+    cfg.method_name = name
+    return cfg
+
+
+def _scaled(base: Callable[[], TrainerConfig], scale: float, name: str) -> Callable[[], TrainerConfig]:
+    """``base`` with its iterations, cadences and schedules stretched by ``scale``; the schedules are
+    stretched in place, so the base's rates stay."""
+
+    def make() -> TrainerConfig:
+        cfg = _with_name(base(), name)
+        cfg.max_num_iterations = int((cfg.max_num_iterations - 1) * scale + 1)
+        cfg.steps_per_eval_batch = int(cfg.steps_per_eval_batch * scale)
+        cfg.steps_per_eval_image = int(cfg.steps_per_eval_image * scale)
+        cfg.steps_per_eval_all_images = int(cfg.steps_per_eval_all_images * scale)
+        cfg.steps_per_eval_all_radars = int(cfg.steps_per_eval_all_radars * scale)
+        cfg.steps_per_save = int(cfg.steps_per_save * scale)
+        for g in cfg.optimizers.values():
+            if g.scheduler is not None:
+                g.scheduler.max_steps = int(g.scheduler.max_steps * scale)
+                g.scheduler.warmup_steps = int(g.scheduler.warmup_steps * scale)
+        return cfg
+
+    return make
+
+
+def _neurader() -> TrainerConfig:
+    """neurad at 2.5x the schedule, halved rates, twice the static grids' resolution and one more
+    hashmap bit on every grid."""
+    cfg = _scaled(_neurad, 2.5, "neurader")()
+    for g in cfg.optimizers.values():
+        g.optimizer.lr *= 0.5
+        if g.scheduler is not None:
+            g.scheduler.lr_final *= 0.5
+    m = cfg.pipeline.model
+    for f in (m.field, m.sampling.proposal_field_1, m.sampling.proposal_field_2):
+        f.grid.static.max_res *= 2
+        f.grid.static.base_res *= 2
+        f.grid.static.log2_hashmap_size += 1
+        f.grid.actor.log2_hashmap_size += 1
+    return cfg
+
+
+def _neuradest() -> TrainerConfig:
+    """neurader stretched another 3x."""
+    return _scaled(_neurader, 3.0, "neuradest")()
+
+
+def _paperize(cfg: TrainerConfig, name: str) -> TrainerConfig:
+    """The paper's settings: no temporal appearance, no actor flips."""
+    cfg.method_name = name
+    cfg.pipeline.model.use_temporal_appearance = False
+    m = cfg.pipeline.model
+    for f in (m.field, m.sampling.proposal_field_1, m.sampling.proposal_field_2):
+        f.grid.actor.flip_prob = 0.0
+    return cfg
+
+
+method_configs: Dict[str, Callable[[], TrainerConfig]] = {
+    "neuradar": _neuradar,
+    "neuradar-set": _neuradar_set,
+    "neuradar-synthetic": _neuradar_synthetic,
+    "neurad": _neurad,
+    "neurad-scaleopt": lambda: _scale_camera_optimizer(_with_name(_neurad(), "neurad-scaleopt")),
+    "neurader": _neurader,
+    "neuradest": _neuradest,
+    "neurader-scaleopt": lambda: _scale_camera_optimizer(_with_name(_neurader(), "neurader-scaleopt")),
+    "neuradest-scaleopt": lambda: _scale_camera_optimizer(_with_name(_neuradest(), "neuradest-scaleopt")),
+    "neurad-paper": lambda: _paperize(_neurad(), "neurad-paper"),
+    "neurad-2x-paper": lambda: _paperize(_neurader(), "neurad-2x-paper"),
+}
+method_descriptions = {
+    "neuradar": "NeuRadar, the paper's preset: ZOD camera + lidar + radar, bf16 in 8 chunks (needs zod data).",
+    "neuradar-set": "NeuRadar with the set-based (DETR) radar decoder on ZOD (needs zod data).",
+    "neuradar-synthetic": "NeuRadar on the built-in synthetic scene (no dataset needed).",
+    "neurad": "NeuRAD: camera + lidar on ZOD, SO3xR3 camera optimizer (needs zod data).",
+    "neurad-scaleopt": "NeuRAD with the per-axis scaled camera optimizer (needs zod data).",
+    "neurader": "NeuRAD, bigger grids and a 2.5x schedule (needs zod data).",
+    "neuradest": "NeuRAD, bigger grids and a 7.5x schedule (needs zod data).",
+    "neurader-scaleopt": "neurader with the scaled camera optimizer (needs zod data).",
+    "neuradest-scaleopt": "neuradest with the scaled camera optimizer (needs zod data).",
+    "neurad-paper": "NeuRAD with the paper's settings: no temporal appearance, no actor flips (needs zod data).",
+    "neurad-2x-paper": "neurader with the paper's settings (needs zod data).",
+}
 
 
 def get_method(name: str) -> TrainerConfig:

@@ -19,6 +19,7 @@ from typing import Dict, Optional
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from neuradar_tpu_torch.cameras.cameras import Cameras, generate_camera_rays
 from neuradar_tpu_torch.cameras.lidars import Lidars
@@ -54,15 +55,18 @@ class SensorTables:
 
 
 def build_sensor_tables(out: DataparserOutputs, device: torch.device) -> SensorTables:
-    if out.distortion_params is not None:
-        raise NotImplementedError("the port renders undistorted cameras only")
-    if out.camera_velocities is not None and out.rolling_shutter_offsets is not None:
-        raise NotImplementedError("the port does not compensate rolling shutter yet")
-
+    """The device tables of a scene; the camera table carries the lens distortion and, where the
+    scene has sensor velocities and readout offsets, rolling shutter."""
     def t(x, dtype=torch.float32):
         return torch.as_tensor(np.asarray(x), dtype=dtype, device=device)
 
     nc = len(out.camera_to_worlds)
+    cam_meta = {"sensor_idxs": t(out.camera_sensor_idxs[:, None], torch.int32)}
+    if out.camera_velocities is not None and out.rolling_shutter_offsets is not None:
+        cam_meta["velocities"] = t(out.camera_velocities)
+        cam_meta["rolling_shutter_offsets"] = t(out.rolling_shutter_offsets)
+        if out.rolling_shutter_horizontal is not None:
+            cam_meta["rs_horizontal"] = t(out.rolling_shutter_horizontal, torch.bool)[:, None]
     cameras = Cameras(
         camera_to_worlds=t(out.camera_to_worlds),
         fx=t(out.intrinsics[:, 0:1]),
@@ -72,8 +76,9 @@ def build_sensor_tables(out: DataparserOutputs, device: torch.device) -> SensorT
         width=torch.full((nc, 1), out.image_size[1], dtype=torch.int32, device=device),
         height=torch.full((nc, 1), out.image_size[0], dtype=torch.int32, device=device),
         camera_type=t(out.camera_type[:, None], torch.int32),
+        distortion_params=None if out.distortion_params is None else t(out.distortion_params),
         times=t(out.camera_times[:, None]),
-        metadata={"sensor_idxs": t(out.camera_sensor_idxs[:, None], torch.int32)},
+        metadata=cam_meta,
     )
     lidar_meta = {"sensor_idxs": t(out.lidar_sensor_idxs[:, None], torch.int32)}
     if out.lidar_velocities is not None:
@@ -172,10 +177,11 @@ def build_train_bundle(tables: SensorTables, batch: Dict[str, torch.Tensor], lay
         offsets = torch.stack([rr.reshape(-1), cc.reshape(-1)], dim=-1)  # [ps*ps, 2]
         coords = batch["patch_tl"][:, None, :].long() + offsets[None]
         cam_idx = torch.repeat_interleave(batch["cam_frame_idx"].long(), ps * ps)
-        cam_bundle = generate_camera_rays(tables.cameras, cam_idx, coords.reshape(-1, 2))
+        with record_function("ray_generation"):
+            cam_bundle = generate_camera_rays(tables.cameras, cam_idx, coords.reshape(-1, 2))
     if layout.num_lidar > 0:
         lidar_bundle = tables.lidars.generate_rays(batch["lidar_scan_idx"], batch["lidar_points"])
-        # frame-index offsets so a camera optimizer would see unique frame ids
+        # frame-index offsets, so the camera optimizer sees unique frame ids
         lidar_bundle.camera_indices = lidar_bundle.camera_indices + tables.num_cam_frames
     if layout.num_radar_scans > 0:
         radar_bundle = tables.radars.generate_rays(batch["radar_scan_idx"])
@@ -359,6 +365,10 @@ class ADDataManager:
         return self.outputs.camera_split.eval
 
     def eval_radar_indices(self) -> np.ndarray:
+        """The eval radar scans; none when the batches hold no radar scans (the model then has no
+        radar decoder)."""
+        if self.config.num_radar_scans == 0:
+            return np.zeros(0, np.int64)
         return self.outputs.radar_split.eval
 
     def eval_lidar_indices(self) -> np.ndarray:

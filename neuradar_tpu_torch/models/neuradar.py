@@ -26,8 +26,11 @@ and the losses stay float32, as in the JAX package. With
 (``cast_tables``) and hands them down through every chunk: autograd then
 adds the chunks' table gradients in bf16 and casts the sum to float32 once,
 as the JAX package's hoisted cast does. The VGG perceptual loss
-(``loss.vgg_mult``) is ported; the camera optimizer (mode "off" in the
-port's presets) and ``nff_remat_policy`` are not.
+(``loss.vgg_mult``) is ported, and so is the camera optimizer: in training it
+pose-corrects every ray whose ``camera_indices`` are set (the frames of all
+three sensors) and adds its regularizer to the losses. With
+``use_temporal_appearance`` off each sensor has one appearance embedding.
+``nff_remat_policy`` is not ported.
 """
 
 from __future__ import annotations
@@ -41,6 +44,7 @@ from torch import nn
 from torch.profiler import record_function
 from torch.utils.checkpoint import checkpoint
 
+from neuradar_tpu_torch.cameras.camera_optimizers import CameraOptimizer, CameraOptimizerConfig
 from neuradar_tpu_torch.cameras.rays import RayBundle, RaySamples
 from neuradar_tpu_torch.field_components.encodings import cast_hash_tables
 from neuradar_tpu_torch.field_components.mlp import MLP
@@ -115,7 +119,11 @@ class NeuRadarModelConfig:
     sampling: SamplingSettings = dataclass_field(default_factory=SamplingSettings)
     field: NeuRADFieldConfig = dataclass_field(default_factory=NeuRADFieldConfig)
     dynamic_actors: DynamicActorsConfig = dataclass_field(default_factory=DynamicActorsConfig)
+    camera_optimizer: CameraOptimizerConfig = dataclass_field(default_factory=CameraOptimizerConfig)
     appearance_dim: int = 16
+    use_temporal_appearance: bool = True
+    """Interpolate each sensor's appearance between embeddings of neighbouring time bins (one bin
+    per 1 / temporal_appearance_freq seconds); off, one embedding per sensor."""
     temporal_appearance_freq: float = 1.0
     rgb_upsample_factor: int = 3
     rgb_hidden_dim: int = 32
@@ -191,6 +199,7 @@ class SceneMeta:
     static_scale: float = 100.0
     duration: float = 10.0
     num_sensors: int = 1
+    num_train_frames: int = 1  # the camera optimizer's frames: every camera, lidar and radar frame
 
 
 def compute_dtype(name: str) -> Optional[torch.dtype]:
@@ -202,10 +211,12 @@ def compute_dtype(name: str) -> Optional[torch.dtype]:
 
 class NeuRadarModel(nn.Module):
     """The joint model, float32 parameters, computing in ``config.compute_dtype``; submodule
-    names follow the flax parameter tree (``vgg_loss`` exists when ``loss.vgg_mult`` > 0, as the
-    flax module's parameters do)."""
+    names follow the flax parameter tree: ``vgg_loss`` exists when ``loss.vgg_mult`` > 0, and
+    ``radar_decoder`` when ``decode_radar`` (its batches hold radar scans), as the flax module's
+    parameters do; ``camera_optimizer`` holds ``pose_adjustment`` unless its mode is "off"."""
 
-    def __init__(self, config: NeuRadarModelConfig, scene: SceneMeta, trajectories: ActorTrajectories):
+    def __init__(self, config: NeuRadarModelConfig, scene: SceneMeta, trajectories: ActorTrajectories,
+                 decode_radar: bool = True):
         super().__init__()
         self.config = config
         self.scene = scene
@@ -213,24 +224,28 @@ class NeuRadarModel(nn.Module):
         self.n_actors = n_actors
         cdt = compute_dtype(config.compute_dtype)
         self.dynamic_actors = DynamicActors(trajectories, config.dynamic_actors)
+        self.camera_optimizer = CameraOptimizer(config.camera_optimizer, scene.num_train_frames)
         self.field = NeuRADField(config.field, scene.static_scale, n_actors, cdt)
         self.proposal_field_0 = NeuRADProposalField(config.sampling.proposal_field_1, scene.static_scale, n_actors, cdt)
         self.proposal_field_1 = NeuRADProposalField(config.sampling.proposal_field_2, scene.static_scale, n_actors, cdt)
 
-        self.embeds_per_sensor = max(1, int(-(-scene.duration * config.temporal_appearance_freq // 1)))
+        self.embeds_per_sensor = (max(1, int(-(-scene.duration * config.temporal_appearance_freq // 1)))
+                                  if config.use_temporal_appearance else 1)
         self.appearance_embedding = nn.Embedding(scene.num_sensors * self.embeds_per_sensor, config.appearance_dim)
 
         n_features = config.field.nff_out_dim + config.appearance_dim
         self.rgb_decoder = RGBDecoder(n_features, config.rgb_hidden_dim, config.rgb_upsample_factor)
         self.lidar_decoder = MLP(n_features, 2, num_layers=3, layer_width=32)
-        if config.radar_decoder_type == "set":
+        if config.radar_decoder_type not in ("encoder", "set"):
+            raise ValueError(f"radar_decoder_type {config.radar_decoder_type!r}: 'encoder' or 'set'")
+        if not decode_radar:
+            self.radar_decoder = None
+        elif config.radar_decoder_type == "set":
             self.radar_decoder = SetRadarDecoder(
                 d_model=n_features, num_queries=config.num_radar_queries, position_scale=scene.static_scale,
                 dropout=config.radar_transformer_dropout, aux_loss=config.radar_set_aux_loss, dtype=cdt)
-        elif config.radar_decoder_type == "encoder":
-            self.radar_decoder = RadarDecoder(d_model=n_features, dropout=config.radar_transformer_dropout, dtype=cdt)
         else:
-            raise ValueError(f"radar_decoder_type {config.radar_decoder_type!r}: 'encoder' or 'set'")
+            self.radar_decoder = RadarDecoder(d_model=n_features, dropout=config.radar_transformer_dropout, dtype=cdt)
         if config.loss.radar_set_loss not in ("mb", "detr"):
             raise ValueError(f"radar_set_loss {config.loss.radar_set_loss!r}: 'mb' or 'detr'")
         if config.loss.vgg_mult > 0.0:
@@ -256,6 +271,9 @@ class NeuRadarModel(nn.Module):
         ``tables``: the hash tables cast once (``cast_tables``)."""
         if train and generator is None:
             raise ValueError("training draws its randomness from a generator")
+        if train and self.config.camera_optimizer.mode != "off":
+            with record_function("camera_optimizer"):
+                ray_bundle = self.camera_optimizer.apply_to_raybundle(ray_bundle)
         outputs = self.get_nff_outputs(ray_bundle, layout, train, generator, tables)
         features = outputs.pop("features")
 
@@ -296,6 +314,8 @@ class NeuRadarModel(nn.Module):
         axis 1."""
         ns, nr = feats.shape[:2]
         decoder = self.radar_decoder
+        if decoder is None:
+            raise ValueError("this model decodes no radar: its batches hold no radar scans")
         n_groups = radar_decode_groups(ns, self.config.radar_decode_chunks)
         noise = decoder.draw_noise(ns, nr, generator, feats.device, n_groups) if generator is not None else None
         if n_groups == 1:
@@ -433,9 +453,8 @@ class NeuRadarModel(nn.Module):
     def loss_and_metrics(self, ray_bundle: RayBundle, batch: Dict[str, torch.Tensor], layout: SegmentLayout,
                          train: bool = True, generator: Optional[torch.Generator] = None,
                          tables: Optional[Dict[nn.Module, torch.Tensor]] = None):
-        """Forward and the loss terms of the JAX package's loss_and_metrics (without the
-        camera-optimizer regularizer). Returns (total, loss_dict, metrics, outputs); the total is
-        the sum of loss_dict in its insertion order."""
+        """Forward and the loss terms of the JAX package's loss_and_metrics. Returns (total,
+        loss_dict, metrics, outputs); the total is the sum of loss_dict in its insertion order."""
         outputs = self.get_outputs(ray_bundle, layout, train, generator, tables)
         with record_function("losses"):
             return self._losses(outputs, ray_bundle, batch, layout, train)
@@ -521,6 +540,9 @@ class NeuRadarModel(nn.Module):
             dist = distortion_loss_sdist(sdist_list[-1], wl[-1])
             metrics["distortion"] = dist.detach()
             loss_dict["distortion_loss"] = conf.distortion_loss_mult * dist
+            if cfg.camera_optimizer.mode != "off":
+                loss_dict["camera_opt_regularizer"] = self.camera_optimizer.regularization_loss()
+                metrics.update(self.camera_optimizer.metrics())
 
         total = torch.zeros((), device=ray_bundle.origins.device)
         for v in loss_dict.values():
@@ -537,11 +559,14 @@ class NeuRadarModel(nn.Module):
                                                                      pa[layout.num_cam :]], dim=0))
 
     def _get_appearance_embedding(self, ray_bundle: RayBundle, features: torch.Tensor) -> torch.Tensor:
-        """Per-sensor appearance, linearly interpolated between the embeddings of neighbouring time bins."""
+        """Per-sensor appearance, linearly interpolated between the embeddings of neighbouring time
+        bins (or, without temporal appearance, the sensor's one embedding)."""
         sensor_idx = ray_bundle.metadata.get("sensor_idxs")
         if sensor_idx is None:
             sensor_idx = torch.zeros((features.shape[0], 1), dtype=torch.long, device=features.device)
         sensor_idx = sensor_idx[..., 0].long()
+        if not self.config.use_temporal_appearance:
+            return self.appearance_embedding(sensor_idx)
         eps_n = self.embeds_per_sensor
         times = ray_bundle.times[..., 0] if ray_bundle.times is not None else torch.zeros_like(features[..., 0])
         time_idx = times / self.scene.duration * eps_n

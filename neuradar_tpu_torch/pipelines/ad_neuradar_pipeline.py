@@ -66,9 +66,12 @@ class ADNeuRadarPipeline:
             static_scale=float(np.abs(outputs.scene_box.aabb).max()),
             duration=float(outputs.duration),
             num_sensors=len(outputs.sensor_idx_to_name),
+            num_train_frames=len(outputs.camera_to_worlds) + len(outputs.lidar_to_worlds)
+            + len(outputs.radar_to_worlds),
         )
         with self.device:
-            self.model = NeuRadarModel(config.model, scene, trajectories_from_dicts(outputs.trajectories))
+            self.model = NeuRadarModel(config.model, scene, trajectories_from_dicts(outputs.trajectories),
+                                       decode_radar=self.layout.num_radar_scans > 0)
         self.model.to(self.device).eval()
         init_params(self.model, seed)
 

@@ -1,7 +1,13 @@
-"""Profile the port's neuradar-synthetic train step at full width on one GPU.
+"""Profile the port's train step of a preset at full width on one GPU.
 
-    python -m neuradar_tpu_torch.scripts.profile_train [--nff-chunks 1] [--compute-dtype bfloat16]
-        [--radar-decode-chunks 4] [--steps 5] [--out FILE] [--path.to.field value]...
+    python -m neuradar_tpu_torch.scripts.profile_train [--preset neuradar-synthetic] [--nff-chunks 1]
+        [--compute-dtype bfloat16] [--radar-decode-chunks 4] [--steps 5] [--out FILE]
+        [--path.to.field value]...
+
+``--preset`` picks the preset of the registry (default neuradar-synthetic, on its own scene); a
+preset of a dataset (neuradar, neurad, ...) trains on the synthetic scene in ZOD's front camera
+(configs/bench_program.zod_camera_scene_outputs). ``--nff-chunks`` and ``--compute-dtype`` default
+to the preset's.
 
 Dotted overrides after the flags change the preset as scripts/train.py's do (for the set radar
 decoder: ``--pipeline.model.radar_decoder_type set --pipeline.model.loss.radar_set_loss detr``).
@@ -12,9 +18,9 @@ synchronized step; median, min, max), then traces one more step with
 torch.profiler. It prints, as JSON lines: the wall times and peak memory;
 the traced step's device busy time (the union of its kernel intervals) and
 idle share (1 - busy / wall); the device time of the kernels launched inside
-each labelled range (train/forward, train/optimizer, and the model's layers:
-proposal_sampling, field, hash_encode, composite_sky, rgb_decoder,
-radar_decoder, losses; a layer's time sums its forward and, with
+each labelled range (train/forward, train/optimizer, and the layers:
+ray_generation (the camera rays), camera_optimizer, proposal_sampling, field,
+hash_encode, composite_sky, rgb_decoder, radar_decoder, losses; a layer's time sums its forward and, with
 nff_chunks > 1, its recompute in the backward pass), and beside it the
 range's span on the device, first kernel to last, which the profiler's key
 averages report for some ranges in its place; the backward's device time,
@@ -38,14 +44,15 @@ import time
 import torch
 from torch.profiler import ProfilerActivity, profile
 
+from neuradar_tpu_torch.configs.bench_program import zod_camera_scene_outputs
 from neuradar_tpu_torch.configs.cli import parse_overrides
 from neuradar_tpu_torch.configs.method_configs import method_configs
 from neuradar_tpu_torch.engine.trainer import Trainer
 
 # name fragments of the hand-written kernels in csrc/ (K1 forward and backward, K3, K2 in float32 and bf16, P1)
 PORT_KERNELS = ("composite_sky", "composite_fwd", "attention_", "row_gather")
-LABELS = ("train/forward", "train/optimizer", "proposal_sampling", "field", "hash_encode", "composite_sky",
-          "rgb_decoder", "radar_decoder", "losses")
+LABELS = ("train/forward", "train/optimizer", "ray_generation", "camera_optimizer", "proposal_sampling", "field",
+          "hash_encode", "composite_sky", "rgb_decoder", "radar_decoder", "losses")
 
 
 def _busy_ms(events) -> float:
@@ -98,9 +105,10 @@ def _step(trainer: Trainer) -> float:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--nff-chunks", type=int, default=1)
+    ap.add_argument("--preset", default="neuradar-synthetic", choices=sorted(method_configs))
+    ap.add_argument("--nff-chunks", type=int, default=None, help="default: the preset's")
     ap.add_argument("--steps", type=int, default=5)
-    ap.add_argument("--compute-dtype", choices=("float32", "bfloat16"), default="float32")
+    ap.add_argument("--compute-dtype", choices=("float32", "bfloat16"), default=None, help="default: the preset's")
     ap.add_argument("--radar-decode-chunks", type=int, default=None, help="default: the model's (4)")
     ap.add_argument("--top", type=int, default=25)
     ap.add_argument("--out", default=None)
@@ -112,17 +120,22 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
-    cfg = method_configs["neuradar-synthetic"]()
-    cfg.pipeline.model.nff_chunks = args.nff_chunks
-    cfg.pipeline.model.compute_dtype = args.compute_dtype
+    cfg = method_configs[args.preset]()
+    m = cfg.pipeline.model
+    if args.nff_chunks is not None:
+        m.nff_chunks = args.nff_chunks
+    if args.compute_dtype is not None:
+        m.compute_dtype = args.compute_dtype
     if args.radar_decode_chunks is not None:
-        cfg.pipeline.model.radar_decode_chunks = args.radar_decode_chunks
+        m.radar_decode_chunks = args.radar_decode_chunks
     parse_overrides(cfg, overrides)
-    trainer = Trainer(cfg, cfg.dataparser.setup().get_dataparser_outputs(), "cuda")
+    scene = (cfg.dataparser.setup().get_dataparser_outputs() if args.preset == "neuradar-synthetic"
+             else zod_camera_scene_outputs())
+    trainer = Trainer(cfg, scene, "cuda")
     trainer.setup()
     rays = trainer.pipeline.layout.total
-    record = {"card": smi, "rays_per_step": rays, "nff_chunks": args.nff_chunks,
-              "compute_dtype": args.compute_dtype,
+    record = {"card": smi, "preset": args.preset, "rays_per_step": rays, "nff_chunks": m.nff_chunks,
+              "compute_dtype": m.compute_dtype,
               "radar_decode_chunks": cfg.pipeline.model.radar_decode_chunks, "overrides": overrides,
               "warmup_s": _step(trainer)}
     torch.cuda.reset_peak_memory_stats()

@@ -1,5 +1,5 @@
 """Pose algebra and trajectory interpolation (port of the JAX package's utils/poses.py,
-the parts the render path uses)."""
+the parts the render path and the camera optimizer use)."""
 
 from __future__ import annotations
 
@@ -70,3 +70,57 @@ def interpolate_poses_9d_to_matrices(poses_9d: torch.Tensor) -> torch.Tensor:
     """[..., 9] (6D rot + pos) -> [..., 3, 4] pose matrices."""
     rot = rotation_6d_to_matrix(poses_9d[..., :6])
     return torch.cat([rot, poses_9d[..., 6:9, None]], dim=-1)
+
+
+def skew_symmetric(v: torch.Tensor) -> torch.Tensor:
+    """[..., 3] -> [..., 3, 3] skew-symmetric matrices."""
+    zero = torch.zeros_like(v[..., 0])
+    rows = [
+        torch.stack([zero, -v[..., 2], v[..., 1]], dim=-1),
+        torch.stack([v[..., 2], zero, -v[..., 0]], dim=-1),
+        torch.stack([-v[..., 1], v[..., 0], zero], dim=-1),
+    ]
+    return torch.stack(rows, dim=-2)
+
+
+# below this squared rotation angle the exponential maps take their Taylor forms
+_SMALL_ANGLE_SQ = 1e-8
+
+
+def _so3_factors(log_rot: torch.Tensor, with_v: bool):
+    """sin(t)/t, (1 - cos(t))/t^2 and, ``with_v``, (t - sin(t))/t^3 of t = |log_rot|, each by its
+    Taylor form below _SMALL_ANGLE_SQ, as in the JAX package. The exact forms see a squared angle
+    of 1 there (the guarded double ``where``), so neither branch's gradient is inf or NaN at a zero
+    tangent, where the camera optimizer starts."""
+    nrms = torch.sum(log_rot**2, dim=-1)
+    small = nrms < _SMALL_ANGLE_SQ
+    theta = torch.sqrt(torch.where(small, torch.ones_like(nrms), nrms))
+    sin, cos = torch.sin(theta), torch.cos(theta)
+    facs = [torch.where(small, 1.0 - nrms / 6.0, sin / theta),
+            torch.where(small, 0.5 - nrms / 24.0, (1 - cos) / theta**2)]
+    if with_v:
+        facs.append(torch.where(small, 1.0 / 6.0 - nrms / 120.0, (theta - sin) / theta**3))
+    return facs
+
+
+def exp_map_SO3xR3(tangent: torch.Tensor) -> torch.Tensor:
+    """SO(3) x R3 exponential map: [..., 6] (translation, log-rotation) -> [..., 3, 4]."""
+    log_rot = tangent[..., 3:]
+    fac1, fac2 = _so3_factors(log_rot, with_v=False)
+    skews = skew_symmetric(log_rot)
+    eye = torch.eye(3, dtype=tangent.dtype, device=tangent.device).expand(skews.shape)
+    R = eye + fac1[..., None, None] * skews + fac2[..., None, None] * (skews @ skews)
+    return torch.cat([R, tangent[..., :3, None]], dim=-1)
+
+
+def exp_map_SE3(tangent: torch.Tensor) -> torch.Tensor:
+    """SE(3) exponential map: [..., 6] (translation, log-rotation) -> [..., 3, 4]."""
+    log_rot = tangent[..., 3:]
+    fac1, fac2, fac3 = _so3_factors(log_rot, with_v=True)
+    skews = skew_symmetric(log_rot)
+    skews_sq = skews @ skews
+    eye = torch.eye(3, dtype=tangent.dtype, device=tangent.device).expand(skews.shape)
+    R = eye + fac1[..., None, None] * skews + fac2[..., None, None] * skews_sq
+    V = eye + fac2[..., None, None] * skews + fac3[..., None, None] * skews_sq
+    t = torch.einsum("...ij,...j->...i", V, tangent[..., :3])
+    return torch.cat([R, t[..., None]], dim=-1)
