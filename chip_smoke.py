@@ -38,7 +38,16 @@ Phases, one line each before the final JSON line:
      train_neurad (K1 at one of 8 chunks of their batches, K2 at bf16 on
      neuradar's), render_neuradar (K1 forward at one of 8 chunks of a
      32,768-ray render chunk) and render_radar_neuradar (K1 forward on one
-     scan's 3,531 rays, K2 at bf16 on one scan, no dropout);
+     scan's 3,531 rays, K2 at bf16 on one scan, no dropout); neuradar-vod's
+     paths at VoD's 4,400-ray scans: train_neuradar-vod (K1 at one of 8
+     chunks of 127,744 rays, K2 at bf16 on [4, 4400, 48] with dropout),
+     render_neuradar-vod and fid_neuradar-vod (K1 forward at one of 8 chunks
+     of a render chunk), render_radar_neuradar-vod (K1 forward on one of 8
+     chunks of a scan, K2 at bf16 on [1, 4400, 48]), and K1 forward on a
+     whole scan ("standalone"); and the renders of the bf16 program's and the
+     set model's phases: render_bf16 (K1 forward on the bench frame),
+     render_radar_set and eval_radar_set (K1 and K2 at bf16 forward on one
+     scan, and on the eval radar metrics' batch of 3 scans);
   4. render: the neuradar-synthetic model at full width with seeded random
      weights renders 2 camera frames at 720 x 1296, one 16,384-ray lidar scan
      and 4 radar scans (decoded in the model's 4 groups of 1 scan, the shape of
@@ -54,7 +63,8 @@ Phases, one line each before the final JSON line:
      bench scene of 24 frames at 96 x 156), trained by a Trainer for 3 steps
      of 113,840 rays, then an eval loss and a camera render, both with the
      hoisted cast; step seconds, rays/s and peak memory, and K2 at bf16 must
-     have launched forward and backward;
+     have launched forward and backward; the render's launches are counted
+     apart (render_bf16);
   6b. train_set: the set radar decoder (the paper's neuradar-set model
      settings: bf16, 8 chunks, the VGG loss, DETR's set loss, 300 queries
      with deep supervision, dropout 0.1, radar in 4 groups), configured as
@@ -65,7 +75,9 @@ Phases, one line each before the final JSON line:
      the eval radar metrics; each step's seconds, peak memory, loss terms
      (radar_aux_loss among them) and Hungarian host time; every parameter
      group, query_embed among them, must have changed, and K1 and K2 at
-     bf16 must have launched forward and backward;
+     bf16 must have launched forward and backward; the render_radar's and the
+     eval radar metrics' launches are counted apart (render_radar_set,
+     eval_radar_set);
   6c. train_presets: the paper's presets of the port's registry, neuradar
      (bf16, 8 chunks, the VGG loss, camera optimizer off) and neurad (the SO3xR3
      camera optimizer on, no radar), each built as scripts/train.py builds it
@@ -88,6 +100,15 @@ Phases, one line each before the final JSON line:
      optimizer away from zero, one train step card against CPU by the rules
      of the agreement phase below (loss terms, every gradient,
      pose_adjustment's among them);
+  6d. train_vod: neuradar-vod (neuradar on View-of-Delft's parser) as
+     scripts/train.py builds it, on the synthetic scene in VoD's sensors
+     (configs/bench_program.vod_sensor_scene_outputs: a 1936 x 1216 pinhole
+     camera, VoD's radar FoV of 100 x 44 = 4,400 rays a scan), 3 steps of
+     127,744 rays, an eval loss, an eval frame (645 x 405 rays) and a radar
+     scan, as train_presets runs neuradar; then compute_fid_metrics of 2
+     eval frames (8 renders each): every family finite, its seconds and its
+     K1 launches (fid_neuradar-vod); K1 and K2 at bf16 on the train path, no
+     float32 K2;
   7. agreement: a tiny scene rendered, and one tiny train step (loss terms and
      every gradient), through the kernels on the card against the plain
      versions on the CPU, with the same weights and the same random draws; and
@@ -130,6 +151,7 @@ import shutil
 import subprocess
 import sys
 import time
+from dataclasses import replace
 from pathlib import Path
 
 import numpy as np
@@ -141,15 +163,18 @@ from neuradar_tpu_torch.configs.bench_program import (
     ZOD_DIST,
     bench_pipeline_config,
     bench_scene_outputs,
+    vod_sensor_scene_outputs,
     zod_camera_scene_outputs,
 )
 from neuradar_tpu_torch.configs.cli import parse_overrides
 from neuradar_tpu_torch.configs.method_configs import get_method, method_configs
 from neuradar_tpu_torch.data.datamanager import ADDataManagerConfig, batch_to_device
+from neuradar_tpu_torch.data.dataparsers.base import linspaced_split
 from neuradar_tpu_torch.data.dataparsers.synthetic import SyntheticDataParser, SyntheticDataParserConfig
 from neuradar_tpu_torch.engine.optimizers import default_optimizer_groups
 from neuradar_tpu_torch.engine.trainer import Trainer, TrainerConfig
 from neuradar_tpu_torch.model_components import radar_utils
+from neuradar_tpu_torch.model_components.vgg import has_pretrained_weights
 from neuradar_tpu_torch.models.neuradar import radar_decode_groups
 from neuradar_tpu_torch.ops import build, gather
 from neuradar_tpu_torch.ops.attention import (
@@ -246,6 +271,16 @@ FULL_BATCH_RAYS = 113840
 # (configs/bench_program.zod_camera_scene_outputs)
 PRESETS = ("neuradar", "neurad")
 PRESET_STEPS = 3
+ZOD_SCAN_RAYS = 3531  # the ZOD radar FoV's 107 x 33 rays, the synthetic scene's
+# VoD's preset, trained on the synthetic scene in VoD's camera and radar FoV
+# (configs/bench_program.vod_sensor_scene_outputs): 100 x 44 = 4,400 rays a radar scan, 127,744 rays a step;
+# then the shifted-view FIDs of its first VOD_FID_FRAMES eval frames
+VOD_PRESET = "neuradar-vod"
+VOD_SCAN_RAYS = 4400
+VOD_STEP_RAYS = 40960 + 16384 + 16 * VOD_SCAN_RAYS
+VOD_FID_FRAMES = 2
+FID_FAMILIES = ("lane_shift_0", "lane_shift_2", "lane_shift_3", "vertical_shift_1", "actor_shift_rot",
+                "actor_shift_trans")
 
 
 def phase(label: str, /, **fields) -> None:
@@ -303,11 +338,11 @@ def _group_scans(model_config, num_scans: int) -> int:
 
 
 def _bf16_path_rows(gen, device, path: str, model_config, num_scans: int, rate: float, seed: int,
-                    rays: int = FULL_BATCH_RAYS, backward: bool = True) -> list:
+                    rays: int = FULL_BATCH_RAYS, backward: bool = True, rays_per_scan: int = ZOD_SCAN_RAYS) -> list:
     """The kernels of a bf16 path against their plain versions: K1 forward and backward at one of the
     per-ray core's chunks of ``rays`` (K1 takes float32 there; the model chunks only a batch that
     the chunk count divides), and, where the path decodes radar scans, K2 at bf16 at one radar
-    decode group of the ZOD FoV's scans (d_model 48) with dropout ``rate``. A render path
+    decode group of scans of ``rays_per_scan`` rays (d_model 48) with dropout ``rate``. A render path
     (``backward`` False) runs the forward kernels alone."""
     rows = []
     k1 = {"route": "cuda", "source": "neuradar_tpu_torch/csrc/composite_sky.cu"}
@@ -339,7 +374,7 @@ def _bf16_path_rows(gen, device, path: str, model_config, num_scans: int, rate: 
         return rows
 
     k2b = {"route": "cuda", "source": "neuradar_tpu_torch/csrc/attention_bf16.cu"}
-    B, S, D = _group_scans(model_config, num_scans), 3531, 48
+    B, S, D = _group_scans(model_config, num_scans), rays_per_scan, 48
     bf = torch.bfloat16
     qb, kb, vb, dob = (torch.randn((B, S, D), generator=gen, device=device).to(bf) for _ in range(4))
     out, lse, out32 = self_attention_fwd(qb, kb, vb, rate, seed, return_lse=True, return_out32=True)
@@ -426,7 +461,7 @@ def check_kernels(device: torch.device) -> list:
 
     # K2 forward at a radar decode group of the render path, dropout 0 (the 4 scans it renders, in
     # the model's decode groups: 1 scan of the ZOD FoV each, d_model 48)
-    B, S, D = _group_scans(ADNeuRadarPipelineConfig().model, len(RENDER_RADAR_SCANS)), 3531, 48
+    B, S, D = _group_scans(ADNeuRadarPipelineConfig().model, len(RENDER_RADAR_SCANS)), ZOD_SCAN_RAYS, 48
     q, k, v = (torch.randn((B, S, D), generator=gen, device=device) for _ in range(3))
     got, want = self_attention_fwd(q, k, v), attention_reference(q, k, v)
     torch.testing.assert_close(got, want, **K2_TOL, msg=lambda m: f"K2 fwd: {m}")
@@ -481,7 +516,7 @@ def check_kernels(device: torch.device) -> list:
     for name in PRESETS:
         pcfg = get_method(name).pipeline
         dm = pcfg.datamanager
-        rays = dm.num_rgb_patches * dm.patch_size**2 + dm.num_lidar_rays + dm.num_radar_scans * 3531
+        rays = dm.num_rgb_patches * dm.patch_size**2 + dm.num_lidar_rays + dm.num_radar_scans * ZOD_SCAN_RAYS
         rows += _bf16_path_rows(gen, device, f"train_{name}", pcfg.model, dm.num_radar_scans, rate, seed, rays)
     # neuradar's eval frame (render chunks of eval_num_rays_per_chunk rays, each in the preset's nff
     # chunks) and its radar scan (one scan of the ZOD FoV: its rays in one chunk, one decode group),
@@ -489,7 +524,35 @@ def check_kernels(device: torch.device) -> list:
     pm = get_method("neuradar").pipeline.model
     rows += _bf16_path_rows(gen, device, "render_neuradar", pm, 0, 0.0, seed, pm.eval_num_rays_per_chunk,
                             backward=False)
-    rows += _bf16_path_rows(gen, device, "render_radar_neuradar", pm, 1, 0.0, seed, 3531, backward=False)
+    rows += _bf16_path_rows(gen, device, "render_radar_neuradar", pm, 1, 0.0, seed, ZOD_SCAN_RAYS, backward=False)
+    # VoD's preset: its train batch (127,744 rays, 8 chunks of 15,968; K2 at bf16 on [4, 4400, 48] with
+    # dropout), its eval frame (render chunks of 32,768 rays, each in 8 nff chunks) and the FID evals'
+    # renders (the same chunks), and one radar scan: 4,400 rays divide by the 8 nff chunks, so K1 runs on
+    # chunks of 550 rays there; K2 at bf16 on [1, 4400, 48] without dropout. One K1 forward row also at
+    # a whole scan's [4400, 33, 32], which no path runs ("standalone")
+    vm = get_method(VOD_PRESET).pipeline.model
+    rows += _bf16_path_rows(gen, device, f"train_{VOD_PRESET}", vm, 16, rate, seed, VOD_STEP_RAYS,
+                            rays_per_scan=VOD_SCAN_RAYS)
+    for path in (f"render_{VOD_PRESET}", f"fid_{VOD_PRESET}"):
+        rows += _bf16_path_rows(gen, device, path, vm, 0, 0.0, seed, vm.eval_num_rays_per_chunk, backward=False)
+    rows += _bf16_path_rows(gen, device, f"render_radar_{VOD_PRESET}", vm, 1, 0.0, seed, VOD_SCAN_RAYS,
+                            backward=False, rays_per_scan=VOD_SCAN_RAYS)
+    launches = composite_sky_fwd.launches
+    rows += _bf16_path_rows(gen, device, "standalone", replace(vm, nff_chunks=1), 0, 0.0, seed, VOD_SCAN_RAYS,
+                            backward=False)
+    rows[-1]["launches"] = composite_sky_fwd.launches - launches
+    # the renders of the bf16 program's and the set model's phases: the bench frame (96 x 156 at the x3
+    # upsample, one render chunk in 8 nff chunks); one radar scan of the set model (its 3,531 rays in one
+    # chunk, one decode group) and its eval radar metrics' batch of the eval scans (one chunk; a decode
+    # group a scan)
+    u = bench.model.rgb_upsample_factor
+    rows += _bf16_path_rows(gen, device, "render_bf16", bench.model, 0, 0.0, seed, (96 // u) * (156 // u),
+                            backward=False)
+    rows += _bf16_path_rows(gen, device, "render_radar_set", set_cfg.model, 1, 0.0, seed, ZOD_SCAN_RAYS,
+                            backward=False)
+    n_eval = len(linspaced_split(SyntheticDataParserConfig().num_frames).eval)
+    rows += _bf16_path_rows(gen, device, "eval_radar_set", set_cfg.model, n_eval, 0.0, seed, n_eval * ZOD_SCAN_RAYS,
+                            backward=False)
 
     # K3 at a render chunk's shape with sample midpoints, against its plain version in float64 (as K1)
     R, S, C = 32768, 33, 32
@@ -634,7 +697,9 @@ def train_full_width(device: torch.device) -> None:
 
 def train_bf16(device: torch.device) -> dict:
     """This slice's path: the JAX package's benchmark program in bf16, trained by a Trainer at the
-    full batch on the bench scene (3 steps), then an eval loss and a camera render."""
+    full batch on the bench scene (3 steps), then an eval loss and a camera render. The kernels'
+    launches are counted apart for the steps with the eval loss (train_bf16) and the render
+    (render_bf16)."""
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     cfg = TrainerConfig(pipeline=bench_pipeline_config("full", chunks=BF16_CHUNKS),
@@ -667,7 +732,10 @@ def train_bf16(device: torch.device) -> dict:
     (losses, metrics), dt = _timed(trainer.eval_loss)
     values = {k: float(v) for k, v in losses.items()}
     _expect(all(math.isfinite(v) for v in values.values()), f"bf16 eval loss not finite: {values}")
+    launches = {"train_bf16": _counts()}
+    _zero_counts()
     rend, render_s = _timed(lambda: trainer.pipeline.render_camera(0))
+    launches["render_bf16"] = _counts()
     shapes = {k: list(v.shape) for k, v in rend.items()}
     _expect(all(_finite(v) for v in rend.values()) and shapes["rgb"] == [96, 156, 3],
             f"bf16 render_camera: {shapes}")
@@ -676,7 +744,7 @@ def train_bf16(device: torch.device) -> dict:
     torch.cuda.empty_cache()
     median = sorted(st["seconds"] for st in steps)[len(steps) // 2]
     return {"steps": steps, "median_step_s": median, "rays_per_s_median": layout.total / median,
-            "peak_mem_gb": max(st["peak_mem_gb"] for st in steps),
+            "peak_mem_gb": max(st["peak_mem_gb"] for st in steps), "launches": launches,
             "eval_loss": {"seconds": dt, "losses": values}, "render_camera": {"seconds": render_s, "shapes": shapes}}
 
 
@@ -695,7 +763,8 @@ def _finite_dict(d: dict) -> bool:
 def train_set(device: torch.device) -> dict:
     """This slice's path: the set radar decoder's model trained at the preset's full batch, 3 steps
     with the auction and 1 with the host's Hungarian, then an eval loss, one scan's render_radar and
-    the eval radar metrics."""
+    the eval radar metrics. The kernels' launches are counted apart for the steps with the eval loss
+    (train_set), the scan's render (render_radar_set) and the metrics' render (eval_radar_set)."""
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     cfg = _set_config()
@@ -744,11 +813,16 @@ def train_set(device: torch.device) -> dict:
     (losses, metrics), eval_s = _timed(trainer.eval_loss)
     eval_values = {k: float(v) for k, v in losses.items()}
     _expect(_finite_dict(eval_values), f"set eval loss not finite: {eval_values}")
+    launches = {"train_set": _counts()}
     scan = int(trainer.pipeline.datamanager.eval_radar_indices()[0])
+    _zero_counts()
     rend, render_s = _timed(lambda: trainer.pipeline.render_radar(scan))
+    launches["render_radar_set"] = _counts()
     ro = rend["radar_output"]
     _expect(list(ro.shape) == [300, 7] and _finite(ro), f"set render_radar: {list(ro.shape)}")
+    _zero_counts()
     radar_metrics, metrics_s = _timed(trainer.pipeline.get_average_eval_radar_metrics)
+    launches["eval_radar_set"] = _counts()
     _expect(_finite_dict(radar_metrics), f"set eval radar metrics: {radar_metrics}")
     changed = {g: any(not torch.equal(p, q) for p, q in zip(groups[g], before[g])) for g in groups}
     changed["query_embed"] = not torch.equal(query_embed.detach(), query_before)
@@ -762,6 +836,7 @@ def train_set(device: torch.device) -> dict:
     return {"steps": steps, "median_step_s_auction": auction[len(auction) // 2],
             "hungarian_step_s": steps[-1]["seconds"], "peak_mem_gb": max(st["peak_mem_gb"] for st in steps),
             "hungarian_host_ms_per_step": steps[-1]["hungarian_sync_ms"] + steps[-1]["hungarian_solve_ms"],
+            "launches": launches,
             "eval_loss": {"seconds": eval_s, "losses": eval_values},
             "render_radar": {"seconds": render_s, "shape": list(ro.shape)},
             "eval_radar_metrics": {"seconds": metrics_s, **radar_metrics}}
@@ -787,14 +862,16 @@ def _counts() -> dict:
     return {k.__name__: k.launches for k in COUNTED_KERNELS}
 
 
-def train_preset(device: torch.device, name: str, scene) -> dict:
+def train_preset(device: torch.device, name: str, scene, fid_frames: int = 0) -> dict:
     """The preset ``name`` of the port's registry, built as scripts/train.py builds it and trained by a
     Trainer on ``scene`` (explicit dataparser outputs) for PRESET_STEPS steps at its full width and
-    batch; neuradar then takes an eval loss, renders an eval frame through render_camera and one radar
-    scan. Step seconds, rays/s, peak memory and the loss terms; with the camera optimizer on, its
-    group must have changed and its regularizer be finite. The kernels' launches are counted apart
-    for the train steps with the eval loss (path train_<name>, the train batch's shapes), the eval
-    frame (render_<name>) and the radar scan (render_radar_<name>)."""
+    batch; a preset with radar scans then takes an eval loss, renders an eval frame through
+    render_camera and one radar scan. Step seconds, rays/s, peak memory and the loss terms; with the
+    camera optimizer on, its group must have changed and its regularizer be finite. With
+    ``fid_frames`` the trainer's pipeline then computes the shifted-view FIDs of that many eval frames
+    (compute_fid_metrics): every family's value must be finite. The kernels' launches are counted
+    apart for the train steps with the eval loss (path train_<name>, the train batch's shapes), the
+    eval frame (render_<name>), the radar scan (render_radar_<name>) and the FIDs (fid_<name>)."""
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     cfg = get_method(name)
@@ -828,7 +905,8 @@ def train_preset(device: torch.device, name: str, scene) -> dict:
         _expect(("camera_opt_regularizer" in values) == (m.camera_optimizer.mode != "off"),
                 f"{name}: camera_opt_regularizer {sorted(values)}")
     eval_report = {}
-    if name == "neuradar":
+    radar = layout.num_radar_scans > 0
+    if radar:
         (losses, _), eval_s = _timed(trainer.eval_loss)
         eval_values = {k: float(v) for k, v in losses.items()}
         _expect(_finite_dict(eval_values), f"{name} eval loss not finite: {eval_values}")
@@ -861,7 +939,7 @@ def train_preset(device: torch.device, name: str, scene) -> dict:
         "eval_frame": _ray_generation(cams, torch.zeros(len(frame), dtype=torch.long, device=device), frame),
         "batch_camera_rays": _ray_generation(cams, torch.repeat_interleave(batch["cam_frame_idx"].long(), ps * ps),
                                              patch.reshape(-1, 2))}
-    if name == "neuradar":
+    if radar:
         cam_idx = int(pipe.datamanager.eval_camera_indices()[0])
         _zero_counts()
         rend, render_s = _timed(lambda: pipe.render_camera(cam_idx))
@@ -879,6 +957,18 @@ def train_preset(device: torch.device, name: str, scene) -> dict:
         report.update(render_camera={"seconds": render_s, "cam_idx": cam_idx, "shapes": shapes,
                                      "rays": (H // u) * (W // u)},
                       render_radar={"seconds": radar_s, "shape": list(ro.shape)})
+    if fid_frames:
+        pipe.model.eval()
+        _zero_counts()
+        fid, fid_s = _timed(lambda: pipe.compute_fid_metrics(max_frames=fid_frames))
+        launches[f"fid_{name}"] = _counts()
+        frames = min(fid_frames, len(pipe.datamanager.eval_camera_indices()))
+        report["fid"] = {"seconds": fid_s, "frames": frames, "renders": frames * 8,
+                         "rays_per_render": (H // u) * (W // u), "values": fid}
+        phase(f"fid_{name}", **report["fid"], launches=launches[f"fid_{name}"])
+        suffix = "" if has_pretrained_weights() else "_vggsurrogate"
+        want = {f"{k}_fid{suffix}" for k in FID_FAMILIES}
+        _expect(set(fid) == want and _finite_dict(fid), f"{name} FID: {fid}")
     report["launches"] = launches
     trainer.shutdown()
     del trainer, pipe, before, groups
@@ -1271,27 +1361,29 @@ def main() -> int:
     phase("train", seconds=time.perf_counter() - t0, launches=launches)
     _expect(all(n > 0 for n in launches.values()), f"a kernel of the train path never launched: {launches}")
 
-    for k in COUNTED_KERNELS:
-        k.launches = 0
+    _zero_counts()
     t0 = time.perf_counter()
     report = train_bf16(device)
-    bf16_launches = {k.__name__: k.launches for k in BF16_PATH_KERNELS}
-    phase("train_bf16", seconds=time.perf_counter() - t0, launches=bf16_launches, **report)
-    _expect(all(n > 0 for n in bf16_launches.values()),
+    bf16_launches = report["launches"]
+    phase("train_bf16", seconds=time.perf_counter() - t0, **report)
+    _expect(all(bf16_launches["train_bf16"][k.__name__] > 0 for k in BF16_PATH_KERNELS),
             f"a kernel of the bf16 train path never launched: {bf16_launches}")
-    _expect(self_attention_fwd.launches == 0 and self_attention_bwd.launches == 0,
-            "the bf16 train path launched the float32 K2")
 
-    for k in COUNTED_KERNELS:
-        k.launches = 0
+    _zero_counts()
     t0 = time.perf_counter()
     report = train_set(device)
-    set_launches = {k.__name__: k.launches for k in BF16_PATH_KERNELS}
-    phase("train_set", seconds=time.perf_counter() - t0, launches=set_launches, **report)
-    _expect(all(n > 0 for n in set_launches.values()),
+    set_launches = report["launches"]
+    phase("train_set", seconds=time.perf_counter() - t0, **report)
+    _expect(all(set_launches["train_set"][k.__name__] > 0 for k in BF16_PATH_KERNELS),
             f"a kernel of the set decoder's train path never launched: {set_launches}")
-    _expect(self_attention_fwd.launches == 0 and self_attention_bwd.launches == 0,
-            "the set decoder's bf16 train path launched the float32 K2")
+    # the renders: K1 forward alone on the bench frame; K1 and K2 at bf16 forward on the radar scans
+    for path, kernels in (("render_bf16", {"composite_sky_fwd"}),
+                          ("render_radar_set", {"composite_sky_fwd", "self_attention_bf16_fwd"}),
+                          ("eval_radar_set", {"composite_sky_fwd", "self_attention_bf16_fwd"})):
+        got = {**bf16_launches, **set_launches}[path]
+        _expect(all((n > 0) == (k in kernels) for k, n in got.items()), f"{path}: launches {got}")
+    for path, got in (*bf16_launches.items(), *set_launches.items()):
+        _expect(got["self_attention_fwd"] == 0 and got["self_attention_bwd"] == 0, f"{path} launched the float32 K2")
 
     scene = zod_camera_scene_outputs()
     preset_launches = {}
@@ -1311,6 +1403,22 @@ def main() -> int:
         got = preset_launches[path]
         _expect(all((n > 0) == (k in kernels) for k, n in got.items()), f"{path}: launches {got}")
     del scene
+
+    # VoD's preset on the synthetic scene in VoD's sensors: 127,744 rays a step, 4,400 a radar scan;
+    # then the shifted-view FIDs of 2 eval frames (8 renders each: 3 lane shifts, 1 vertical, 4 actor edits)
+    t0 = time.perf_counter()
+    report = train_preset(device, VOD_PRESET, vod_sensor_scene_outputs(), fid_frames=VOD_FID_FRAMES)
+    preset_launches.update(report["launches"])
+    setup = report["setup"]
+    phase("train_vod", preset=VOD_PRESET, seconds=time.perf_counter() - t0, gpu=smi.splitlines()[0], **report)
+    _expect(setup["rays_per_step"] == VOD_STEP_RAYS and report["render_radar"]["shape"] == [VOD_SCAN_RAYS, 7],
+            f"{VOD_PRESET}: {setup['rays_per_step']} rays a step, radar {report['render_radar']['shape']}")
+    for path, kernels in ((f"train_{VOD_PRESET}", set(k.__name__ for k in BF16_PATH_KERNELS)),
+                          (f"render_{VOD_PRESET}", {"composite_sky_fwd"}),
+                          (f"render_radar_{VOD_PRESET}", {"composite_sky_fwd", "self_attention_bf16_fwd"}),
+                          (f"fid_{VOD_PRESET}", {"composite_sky_fwd"})):
+        got = report["launches"][path]
+        _expect(all((n > 0) == (k in kernels) for k, n in got.items()), f"{path}: launches {got}")
     phase("train_presets_agreement", **check_tiny_train_agreement(device, preset="neurad"))
 
     phase("agreement", max_abs_err=check_tiny_agreement(device), **TINY_TOL)
@@ -1329,8 +1437,8 @@ def main() -> int:
 
     phase("learning", **learning())
 
-    path_launches = {"render": render_launches, "train": launches, "train_bf16": bf16_launches,
-                     "train_set": set_launches, **preset_launches}
+    path_launches = {"render": render_launches, "train": launches, **bf16_launches, **set_launches,
+                     **preset_launches}
     for row in rows:
         if row["path"] != "standalone":
             row["launches"] = path_launches[row["path"]][row["name"]]

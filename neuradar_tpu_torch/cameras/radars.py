@@ -91,3 +91,8 @@ ZOD_RADAR_FOV = dict(
     min_azimuth=-0.80, max_azimuth=0.80, min_elevation=-0.08, max_elevation=0.40,
     azimuth_step=0.015, elevation_step=0.015,
 )
+# VoD's 3+1D radar FoV: 100 azimuths x 44 elevations = 4,400 rays a scan
+VOD_RADAR_FOV = dict(
+    min_azimuth=-1.0, max_azimuth=1.0, min_elevation=-0.39, max_elevation=0.49,
+    azimuth_step=0.02, elevation_step=0.02,
+)

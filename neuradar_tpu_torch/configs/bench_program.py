@@ -17,6 +17,9 @@ VGG either). Its remat policies and packed cells wait for the hash-grid encode a
 the paper's presets (neuradar, neurad) until a ZOD sequence is at hand:
 
     trainer = Trainer(get_method("neuradar"), zod_camera_scene_outputs(), "cuda")
+
+``vod_sensor_scene_outputs`` is the synthetic scene in View-of-Delft's sensors (its camera and its
+radar FoV), the stand-in scene of ``neuradar-vod`` until a VoD sequence is at hand.
 """
 
 from __future__ import annotations
@@ -27,6 +30,7 @@ from typing import Optional
 import numpy as np
 
 from neuradar_tpu_torch.cameras.cameras import CameraType
+from neuradar_tpu_torch.cameras.radars import VOD_RADAR_FOV
 from neuradar_tpu_torch.data.datamanager import ADDataManagerConfig
 from neuradar_tpu_torch.data.dataparsers.synthetic import SyntheticDataParser, SyntheticDataParserConfig
 from neuradar_tpu_torch.pipelines.ad_neuradar_pipeline import ADNeuRadarPipelineConfig
@@ -55,14 +59,37 @@ def zod_camera_scene_outputs():
     FISHEYE with ZOD_DIST, at ZOD_IMAGE with ZOD_INTRINSICS (fx, fy, cx, cy). The images are rendered
     on the coarse grid and repeated up to the camera's size (nearest neighbour): their content does
     not change the work."""
+    return _camera_scene(ZOD_IMAGE, ZOD_INTRINSICS, CameraType.FISHEYE, ZOD_DIST)
+
+
+# VoD's camera: a 1936 x 1216 pinhole without distortion; its intrinsics a stand-in near those of VoD's
+# P2 calibration (fx = fy, principal point near the image centre)
+VOD_IMAGE = (1216, 1936)
+VOD_INTRINSICS = (1495.5, 1495.5, 961.3, 624.9)
+
+
+def _camera_scene(image_size, intrinsics, camera_type: CameraType, distortion=None):
+    """The synthetic scene (24 frames, rendered at 96 x 156, seed 0) in another camera: its images
+    rendered on the coarse grid and repeated up to ``image_size`` (nearest neighbour; their content does
+    not change the work), ``intrinsics`` (fx, fy, cx, cy) and ``camera_type`` on every frame."""
     out = SyntheticDataParser(SyntheticDataParserConfig()).get_dataparser_outputs()
-    n, (H, W) = len(out.camera_to_worlds), ZOD_IMAGE
+    n, (H, W) = len(out.camera_to_worlds), image_size
     h, w = out.image_size
     out.images = out.images[:, (np.arange(H) * h // H)[:, None], (np.arange(W) * w // W)[None, :]]
     out.image_size = (H, W)
-    out.intrinsics = np.tile(np.array([ZOD_INTRINSICS], np.float32), (n, 1))
-    out.camera_type = np.full(n, int(CameraType.FISHEYE))
-    out.distortion_params = np.tile(np.array([ZOD_DIST], np.float32), (n, 1))
+    out.intrinsics = np.tile(np.array([intrinsics], np.float32), (n, 1))
+    out.camera_type = np.full(n, int(camera_type))
+    if distortion is not None:
+        out.distortion_params = np.tile(np.array([distortion], np.float32), (n, 1))
+    return out
+
+
+def vod_sensor_scene_outputs():
+    """The synthetic scene in VoD's sensors: a PERSPECTIVE camera at VOD_IMAGE with VOD_INTRINSICS
+    (stand-ins near VoD's P2, no distortion) and VoD's radar FoV, 100 x 44 = 4,400 rays a scan.
+    Geometry, lidar, radar points and actors are the synthetic scene's."""
+    out = _camera_scene(VOD_IMAGE, VOD_INTRINSICS, CameraType.PERSPECTIVE)
+    out.radar_fov = dict(VOD_RADAR_FOV)
     return out
 
 

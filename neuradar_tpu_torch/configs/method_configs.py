@@ -7,8 +7,9 @@ optimizer on; ``neurad-scaleopt`` weights its degrees of freedom; ``neurader`` a
 train longer (2.5x, 7.5x) at halved rates on finer grids, each with its ``-scaleopt``;
 ``neurad-paper`` and ``neurad-2x-paper`` are neurad and neurader with the paper's settings (no
 temporal appearance, no actor flips). ``neuradar-synthetic`` is the data-free preset, float32,
-without the VGG loss. The presets of the parsers the port lacks (VoD, nuScenes, PandaSet,
-KITTI-MOT, Argoverse 2, WOD) are not here.
+without the VGG loss. ``neuradar-vod`` is neuradar on View-of-Delft; ``neurad-nuscenes``,
+``neurad-pandaset``, ``neurad-kittimot``, ``neurad-argoverse2`` and ``neurad-wod`` are neurad on
+those datasets' parsers. The nerfacto family and splatfacto are not here.
 """
 
 from __future__ import annotations
@@ -17,7 +18,13 @@ from typing import Callable, Dict
 
 from neuradar_tpu_torch.cameras.camera_optimizers import CameraOptimizerConfig, ScaledCameraOptimizerConfig
 from neuradar_tpu_torch.data.datamanager import ADDataManagerConfig
+from neuradar_tpu_torch.data.dataparsers.argoverse2 import Argoverse2DataParserConfig
+from neuradar_tpu_torch.data.dataparsers.kittimot import KittiMotDataParserConfig
+from neuradar_tpu_torch.data.dataparsers.nuscenes import NuScenesDataParserConfig
+from neuradar_tpu_torch.data.dataparsers.pandaset import PandasetDataParserConfig
 from neuradar_tpu_torch.data.dataparsers.synthetic import SyntheticDataParserConfig
+from neuradar_tpu_torch.data.dataparsers.vod import VodDataParserConfig
+from neuradar_tpu_torch.data.dataparsers.wod import WodDataParserConfig
 from neuradar_tpu_torch.data.dataparsers.zod import ZodDataParserConfig
 from neuradar_tpu_torch.engine.optimizers import default_optimizer_groups
 from neuradar_tpu_torch.engine.trainer import TrainerConfig
@@ -51,6 +58,13 @@ def _neuradar_set() -> TrainerConfig:
     return cfg
 
 
+def _neuradar_vod() -> TrainerConfig:
+    cfg = _neuradar()
+    cfg.method_name = "neuradar-vod"
+    cfg.dataparser = VodDataParserConfig()
+    return cfg
+
+
 def _neuradar_synthetic() -> TrainerConfig:
     cfg = TrainerConfig(
         method_name="neuradar-synthetic",
@@ -75,6 +89,18 @@ def _neurad() -> TrainerConfig:
     cfg.pipeline.datamanager.num_radar_scans = 0
     cfg.pipeline.model.camera_optimizer = CameraOptimizerConfig(mode="SO3xR3")
     return cfg
+
+
+def _neurad_on(dataparser: Callable[[], object], name: str) -> Callable[[], TrainerConfig]:
+    """neurad on another dataset's parser."""
+
+    def make() -> TrainerConfig:
+        cfg = _neurad()
+        cfg.method_name = name
+        cfg.dataparser = dataparser()
+        return cfg
+
+    return make
 
 
 def _scale_camera_optimizer(cfg: TrainerConfig) -> TrainerConfig:
@@ -146,6 +172,7 @@ def _paperize(cfg: TrainerConfig, name: str) -> TrainerConfig:
 method_configs: Dict[str, Callable[[], TrainerConfig]] = {
     "neuradar": _neuradar,
     "neuradar-set": _neuradar_set,
+    "neuradar-vod": _neuradar_vod,
     "neuradar-synthetic": _neuradar_synthetic,
     "neurad": _neurad,
     "neurad-scaleopt": lambda: _scale_camera_optimizer(_with_name(_neurad(), "neurad-scaleopt")),
@@ -155,10 +182,16 @@ method_configs: Dict[str, Callable[[], TrainerConfig]] = {
     "neuradest-scaleopt": lambda: _scale_camera_optimizer(_with_name(_neuradest(), "neuradest-scaleopt")),
     "neurad-paper": lambda: _paperize(_neurad(), "neurad-paper"),
     "neurad-2x-paper": lambda: _paperize(_neurader(), "neurad-2x-paper"),
+    "neurad-nuscenes": _neurad_on(NuScenesDataParserConfig, "neurad-nuscenes"),
+    "neurad-pandaset": _neurad_on(PandasetDataParserConfig, "neurad-pandaset"),
+    "neurad-kittimot": _neurad_on(KittiMotDataParserConfig, "neurad-kittimot"),
+    "neurad-argoverse2": _neurad_on(Argoverse2DataParserConfig, "neurad-argoverse2"),
+    "neurad-wod": _neurad_on(WodDataParserConfig, "neurad-wod"),
 }
 method_descriptions = {
     "neuradar": "NeuRadar, the paper's preset: ZOD camera + lidar + radar, bf16 in 8 chunks (needs zod data).",
     "neuradar-set": "NeuRadar with the set-based (DETR) radar decoder on ZOD (needs zod data).",
+    "neuradar-vod": "NeuRadar on View-of-Delft: camera + lidar + 3+1D radar, 4,400 rays a radar scan (needs VoD data).",
     "neuradar-synthetic": "NeuRadar on the built-in synthetic scene (no dataset needed).",
     "neurad": "NeuRAD: camera + lidar on ZOD, SO3xR3 camera optimizer (needs zod data).",
     "neurad-scaleopt": "NeuRAD with the per-axis scaled camera optimizer (needs zod data).",
@@ -168,6 +201,11 @@ method_descriptions = {
     "neuradest-scaleopt": "neuradest with the scaled camera optimizer (needs zod data).",
     "neurad-paper": "NeuRAD with the paper's settings: no temporal appearance, no actor flips (needs zod data).",
     "neurad-2x-paper": "neurader with the paper's settings (needs zod data).",
+    "neurad-nuscenes": "NeuRAD on nuScenes: the front camera and the top lidar (needs the nuscenes devkit and data).",
+    "neurad-pandaset": "NeuRAD on PandaSet: the front camera with its rolling shutter and the Pandar64 (needs data).",
+    "neurad-kittimot": "NeuRAD on KITTI MOT: image_02 and the velodyne, oxts poses (needs data).",
+    "neurad-argoverse2": "NeuRAD on Argoverse 2: the front ring camera and the lidar (needs the av2 devkit and data).",
+    "neurad-wod": "NeuRAD on the Waymo Open Dataset: front camera, column rolling shutter, top lidar (needs data).",
 }
 
 

@@ -13,6 +13,11 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 
 
+# the radar FoV of a parser whose dataset has no radar (its outputs hold no radar scans)
+NO_RADAR_FOV = dict(min_azimuth=-0.5, max_azimuth=0.5, min_elevation=-0.1, max_elevation=0.1,
+                    azimuth_step=0.02, elevation_step=0.02)
+
+
 @dataclass
 class SceneBox:
     aabb: np.ndarray  # [2, 3] min/max

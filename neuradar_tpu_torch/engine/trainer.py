@@ -14,8 +14,11 @@ batch-norm buffers), every group's optimizer state, ``step`` and the state of th
 steps draw their randomness from (the JAX package folds the step into its key instead). As in the
 JAX package, the host batch sampler starts again from its seed on resume.
 
+The shifted-view FID evals run after each step of ``pipeline.calc_fid_steps`` (0-based indices, 0
+left out as in the JAX package).
+
 Not ported: the viewer, the profiler, multi-device training, several steps per dispatch, gradient
-accumulation, ``change_patch_sampler``, the radar figure of the single-image eval and the FID evals.
+accumulation, ``change_patch_sampler`` and the radar figure of the single-image eval.
 """
 
 from __future__ import annotations
@@ -147,9 +150,6 @@ class Trainer:
         """Train to ``max_num_iterations`` with the eval, log and save cadences; returns the last
         logged scalars and eval metrics, with ``total_train_time``."""
         cfg = self.config
-        fid = [t for t in cfg.pipeline.calc_fid_steps if t > 0 and self.step <= t < cfg.max_num_iterations]
-        if fid:
-            raise NotImplementedError(f"FID evals (calc_fid_steps {fid}) are not ported")
         if self.writer is None:
             self.writer = EventWriter(log_dir=self.run_dir / "logs")
         n_iters = max(cfg.max_num_iterations - self.step, 0)
@@ -186,6 +186,11 @@ class Trainer:
                 radar_metrics = self.pipeline.get_average_eval_radar_metrics()
                 self.writer.put_scalars(step, radar_metrics)
                 last_metrics.update(radar_metrics)
+            if step > 0 and step in cfg.pipeline.calc_fid_steps:  # after the step of that 0-based index
+                self.model.eval()
+                fid = self.pipeline.compute_fid_metrics()
+                self.writer.put_scalars(step, fid)
+                last_metrics.update(fid)
             if _fires(cfg.steps_per_eval_all_images, step):
                 self.model.eval()
                 img_metrics = self.pipeline.get_average_eval_image_metrics()

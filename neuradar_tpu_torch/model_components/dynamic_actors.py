@@ -1,7 +1,9 @@
 """Dynamic actors: rigid trajectories of moving objects (port of the JAX
-package's model_components/dynamic_actors.py, without actor edits). In
-training each ray may mirror the actors it sees along their x axis (the
-random x-flip augmentation), drawn from the caller's generator.
+package's model_components/dynamic_actors.py). In training each ray may
+mirror the actors it sees along their x axis (the random x-flip
+augmentation), drawn from the caller's generator. Renders may edit the
+actors (``ActorEdits``: shift, yaw, remove), as the shifted-view FID evals
+do; training passes no edits.
 
 Each ray keeps a fixed set of K candidate actors (point-line distance from the
 actor centre below its bounding radius, nearest first); per-sample in-box
@@ -97,6 +99,19 @@ class ActorCandidates:
                                                  self.actor_id, self.valid, self.flip)))
 
 
+@dataclass
+class ActorEdits:
+    """Actor edits of a render: a shift in each selected actor's box frame (lateral along its x,
+    longitudinal along its y), a yaw about the world's z, or removal (the box lifted 1e6 up, where no
+    ray meets it). ``index`` -1 selects every actor."""
+
+    lateral: float = 0.0
+    longitudinal: float = 0.0
+    rotation: float = 0.0
+    index: int = -1
+    remove: bool = False
+
+
 class DynamicActors(nn.Module):
     """Actor trajectories: parameters actor_positions [T, A, 3] and
     actor_rotations_6d [T, A, 6], initialized from the dataparser."""
@@ -113,22 +128,25 @@ class DynamicActors(nn.Module):
         self.register_buffer("bounds", trajectories.sizes / 2 + pad)  # [A, 3]
         self.register_buffer("actor_to_id", torch.arange(self.n_actors))
 
-    def get_boxes2world(self, query_times: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Boxes-to-world at query times: ([Q, A, 3, 4], valid [Q, A])."""
+    def get_boxes2world(self, query_times: torch.Tensor,
+                        edits: Optional[ActorEdits] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Boxes-to-world at query times, with ``edits`` applied: ([Q, A, 3, 4], valid [Q, A])."""
         poses9 = torch.cat([self.actor_rotations_6d, self.actor_positions], dim=-1)
         poses9, valid = pose_utils.interpolate_trajectories_6d(poses9, self.unique_timestamps, query_times,
                                                                self.present)
-        return pose_utils.interpolate_poses_9d_to_matrices(poses9), valid
+        b2w = pose_utils.interpolate_poses_9d_to_matrices(poses9)
+        return (b2w if edits is None else _apply_edits(b2w, edits)), valid
 
     def get_ray_candidates(self, ray_times: torch.Tensor, line_points: torch.Tensor, line_dirs: torch.Tensor,
                            flip_generator: Optional[torch.Generator] = None,
-                           flip_prob: float = 0.0) -> ActorCandidates:
+                           flip_prob: float = 0.0, edits: Optional[ActorEdits] = None) -> ActorCandidates:
         """The K nearest actors per ray whose bounding sphere the ray line passes through.
 
         ray_times [R], line_points [R, 3] (origins), line_dirs [R, 3] (unit). With a
-        generator and flip_prob > 0, each ray is x-flipped with probability flip_prob."""
+        generator and flip_prob > 0, each ray is x-flipped with probability flip_prob.
+        ``edits`` moves or removes actors first (a render's)."""
         K = min(self.config.max_actors_per_ray, max(self.n_actors, 1))
-        b2w, valid = self.get_boxes2world(ray_times)  # [R, A, 3, 4], [R, A]
+        b2w, valid = self.get_boxes2world(ray_times, edits)  # [R, A, 3, 4], [R, A]
         centers = b2w[..., :3, 3]
         radii = torch.linalg.vector_norm(self.bounds, dim=-1)  # [A]
         cross = torch.linalg.cross(centers - line_points[:, None, :], line_dirs[:, None, :].expand_as(centers), dim=-1)
@@ -154,6 +172,27 @@ class DynamicActors(nn.Module):
             valid=torch.isfinite(k_score),
             flip=flip.to(line_points.dtype),
         )
+
+
+def _apply_edits(b2w: torch.Tensor, edits: ActorEdits) -> torch.Tensor:
+    """[Q, A, 3, 4] boxes-to-world with the selected actors edited; unchanged for an empty edit.
+
+    A shift moves each box along its own x (lateral) and y (longitudinal) axes; a rotation turns the
+    box about the world's z (its centre stays); a removal lifts the box 1e6 up."""
+    if not edits.remove and (edits.lateral, edits.longitudinal, edits.rotation) == (0.0, 0.0, 0.0):
+        return b2w
+    sel = (torch.arange(b2w.shape[1], device=b2w.device) == edits.index) | (edits.index < 0)  # [A]
+    if edits.remove:
+        t = b2w[..., :3, 3] + torch.tensor([0.0, 0.0, 1e6], dtype=b2w.dtype, device=b2w.device)
+        edited = torch.cat([b2w[..., :3, :3], t[..., None]], dim=-1)
+    else:
+        shift = torch.tensor([edits.lateral, edits.longitudinal, 0.0], dtype=b2w.dtype, device=b2w.device)
+        t = b2w[..., :3, 3] + torch.einsum("qaij,j->qai", b2w[..., :3, :3], shift)
+        rot = torch.tensor(edits.rotation, dtype=b2w.dtype, device=b2w.device)
+        c, s, zero, one = torch.cos(rot), torch.sin(rot), torch.zeros_like(rot), torch.ones_like(rot)
+        yaw = torch.stack([torch.stack([c, -s, zero]), torch.stack([s, c, zero]), torch.stack([zero, zero, one])])
+        edited = torch.cat([torch.einsum("ij,qajk->qaik", yaw, b2w[..., :3, :3]), t[..., None]], dim=-1)
+    return torch.where(sel[None, :, None, None], edited, b2w)
 
 
 def assign_samples_to_actors(candidates: ActorCandidates,

@@ -57,6 +57,7 @@ from neuradar_tpu_torch.fields.neurad_field import (
 from neuradar_tpu_torch.model_components.cnns import RGBDecoder
 from neuradar_tpu_torch.model_components.dynamic_actors import (
     ActorCandidates,
+    ActorEdits,
     ActorTrajectories,
     DynamicActors,
     DynamicActorsConfig,
@@ -265,16 +266,17 @@ class NeuRadarModel(nn.Module):
 
     def get_outputs(self, ray_bundle: RayBundle, layout: SegmentLayout, train: bool = False,
                     generator: Optional[torch.Generator] = None,
-                    tables: Optional[Dict[nn.Module, torch.Tensor]] = None) -> Dict[str, torch.Tensor]:
+                    tables: Optional[Dict[nn.Module, torch.Tensor]] = None,
+                    actor_edits: Optional[ActorEdits] = None) -> Dict[str, torch.Tensor]:
         """Decoded outputs of a merged bundle. ``train`` needs a generator: it jitters the
         samples, flips actors, applies dropout and puts the RGB CNN's batch norm in training.
-        ``tables``: the hash tables cast once (``cast_tables``)."""
+        ``tables``: the hash tables cast once (``cast_tables``); ``actor_edits``: a render's."""
         if train and generator is None:
             raise ValueError("training draws its randomness from a generator")
         if train and self.config.camera_optimizer.mode != "off":
             with record_function("camera_optimizer"):
                 ray_bundle = self.camera_optimizer.apply_to_raybundle(ray_bundle)
-        outputs = self.get_nff_outputs(ray_bundle, layout, train, generator, tables)
+        outputs = self.get_nff_outputs(ray_bundle, layout, train, generator, tables, actor_edits)
         features = outputs.pop("features")
 
         cam_feats = layout.cam(features)
@@ -339,10 +341,12 @@ class NeuRadarModel(nn.Module):
 
     def get_nff_outputs(self, ray_bundle: RayBundle, layout: SegmentLayout, train: bool = False,
                         generator: Optional[torch.Generator] = None,
-                        tables: Optional[Dict[nn.Module, torch.Tensor]] = None) -> Dict[str, torch.Tensor]:
+                        tables: Optional[Dict[nn.Module, torch.Tensor]] = None,
+                        actor_edits: Optional[ActorEdits] = None) -> Dict[str, torch.Tensor]:
         """Neural-feature-field forward: features [R, C + A], depth [R, 1], accumulation [R, 1];
         in training also the per-round weights and bin edges the losses need, and the lidar
-        carving sums. ``tables`` (``cast_tables``) enter every chunk as they are."""
+        carving sums. ``tables`` (``cast_tables``) enter every chunk as they are; ``actor_edits``
+        moves or removes the actors (renders only)."""
         cfg = self.config
         ray_bundle = self._scale_pixel_area(ray_bundle, layout)
         sky = cfg.sampling.sky_distance
@@ -366,6 +370,7 @@ class NeuRadarModel(nn.Module):
             candidates = self.dynamic_actors.get_ray_candidates(
                 times, ray_bundle.origins, ray_bundle.directions,
                 flip_generator=generator if train and flip_prob > EPS else None, flip_prob=flip_prob,
+                edits=actor_edits,
             )
         jitter = None
         if train:

@@ -1,9 +1,10 @@
 """AD NeuRadar pipeline: datamanager + model, the train and eval losses, the
 render entry points and the eval-metric loops (port of the JAX package's
 pipelines/ad_neuradar_pipeline.py: the constructor, ``make_train_loss_fn``,
-``make_eval_loss_fn``, ``render_camera``, ``render_lidar``, ``render_radar``
-and ``get_average_eval_{image,lidar,radar}_metrics``; the FID evals are not
-ported).
+``make_eval_loss_fn``, ``render_camera``, ``render_lidar``, ``render_radar``,
+``get_average_eval_{image,lidar,radar}_metrics`` and the shifted-view FID
+evals, ``compute_fid_metrics``). The renders take actor edits, and
+``render_camera`` a world offset of its ray origins.
 
 Everything runs on one explicit ``device``; there is no fallback to another.
 The render methods return tensors on that device (the JAX package returns
@@ -17,6 +18,7 @@ the JAX package's ``_cast_variables`` / ``make_train_loss_fn`` do.
 
 from __future__ import annotations
 
+import dataclasses
 import time
 from dataclasses import dataclass, field
 from typing import Callable, Dict, Optional, Sequence, Tuple, Union
@@ -34,8 +36,8 @@ from neuradar_tpu_torch.data.datamanager import (
 )
 from neuradar_tpu_torch.data.dataparsers.base import DataparserOutputs
 from neuradar_tpu_torch.model_components import radar_utils
-from neuradar_tpu_torch.model_components.dynamic_actors import trajectories_from_dicts
-from neuradar_tpu_torch.model_components.fid import PerceptualDistance
+from neuradar_tpu_torch.model_components.dynamic_actors import ActorEdits, trajectories_from_dicts
+from neuradar_tpu_torch.model_components.fid import FeatureExtractor, PerceptualDistance, frechet_distance
 from neuradar_tpu_torch.model_components.gospa import calculate_gospa
 from neuradar_tpu_torch.model_components.vgg import has_pretrained_weights
 from neuradar_tpu_torch.models.neuradar import NeuRadarModel, NeuRadarModelConfig, SceneMeta, SegmentLayout
@@ -46,7 +48,7 @@ from neuradar_tpu_torch.utils.params import init_params
 class ADNeuRadarPipelineConfig:
     datamanager: ADDataManagerConfig = field(default_factory=ADDataManagerConfig)
     model: NeuRadarModelConfig = field(default_factory=NeuRadarModelConfig)
-    calc_fid_steps: Tuple[int, ...] = (99999999,)  # FID evals are not ported: a run that reaches one raises
+    calc_fid_steps: Tuple[int, ...] = (99999999,)  # the steps after which the trainer runs the FID evals
     radar_sampling_rounds: int = 10
 
 
@@ -106,11 +108,14 @@ class ADNeuRadarPipeline:
         return eval_loss
 
     @torch.inference_mode()
-    def render_camera(self, cam_idx: int) -> Dict[str, torch.Tensor]:
+    def render_camera(self, cam_idx: int, actor_edits: Optional[ActorEdits] = None,
+                      origin_shift: Optional[np.ndarray] = None) -> Dict[str, torch.Tensor]:
         """Full-image render: one ray per u x u pixel block, chunked at
         eval_num_rays_per_chunk (the last chunk padded by repeating its last
         ray), then the upsampling CNN -> rgb [H, W, 3], depth and
-        accumulation [H/u, W/u]."""
+        accumulation [H/u, W/u]. ``actor_edits`` moves or removes actors;
+        ``origin_shift`` [3] is added to every ray origin (the world offset of
+        the shifted-view FID evals)."""
         m = self.config.model
         u = m.rgb_upsample_factor
         H, W = self.outputs.image_size
@@ -127,12 +132,15 @@ class ADNeuRadarPipeline:
         layout = SegmentLayout(num_cam=chunk, patch_size=(h, w))
 
         tables = self.model.cast_tables()
+        shift = None if origin_shift is None else torch.as_tensor(origin_shift, dtype=torch.float32, device=self.device)
         outs = []
         for i in range(0, coords.shape[0], chunk):
             cam_ids = torch.full((chunk,), cam_idx, dtype=torch.long, device=self.device)
-            bundle = merge_modality_bundles(generate_camera_rays(self.tables.cameras, cam_ids, coords[i : i + chunk]),
-                                            None, None)
-            outs.append(self.model.get_nff_outputs(bundle, layout, tables=tables))
+            rays = generate_camera_rays(self.tables.cameras, cam_ids, coords[i : i + chunk])
+            if shift is not None:
+                rays = dataclasses.replace(rays, origins=rays.origins + shift)
+            bundle = merge_modality_bundles(rays, None, None)
+            outs.append(self.model.get_nff_outputs(bundle, layout, tables=tables, actor_edits=actor_edits))
         features = torch.cat([o["features"] for o in outs])[:n_rays]
         depth = torch.cat([o["depth"] for o in outs])[:n_rays]
         acc = torch.cat([o["accumulation"] for o in outs])[:n_rays]
@@ -140,8 +148,10 @@ class ADNeuRadarPipeline:
         return {"rgb": rgb, "depth": depth.reshape(h, w), "accumulation": acc.reshape(h, w)}
 
     @torch.inference_mode()
-    def render_lidar(self, scan_idx: int, max_points: int = 16384) -> Dict[str, object]:
-        """Render a lidar scan subsampled (seeded) or padded to max_points rays."""
+    def render_lidar(self, scan_idx: int, max_points: int = 16384,
+                     actor_edits: Optional[ActorEdits] = None) -> Dict[str, object]:
+        """Render a lidar scan subsampled (seeded) or padded to max_points rays, the actors edited by
+        ``actor_edits``."""
         pts = self.outputs.lidar_points[scan_idx]
         num_valid = min(len(pts), max_points)
         if len(pts) > max_points:
@@ -156,7 +166,8 @@ class ADNeuRadarPipeline:
             torch.as_tensor(pts, dtype=torch.float32, device=self.device),
         )
         outputs = self.model.get_outputs(merge_modality_bundles(None, bundle, None),
-                                         SegmentLayout(num_lidar=max_points), tables=self.model.cast_tables())
+                                         SegmentLayout(num_lidar=max_points), tables=self.model.cast_tables(),
+                                         actor_edits=actor_edits)
         return {
             "depth": outputs["depth"],
             "intensity": outputs["intensity"],
@@ -166,17 +177,84 @@ class ADNeuRadarPipeline:
         }
 
     @torch.inference_mode()
-    def render_radar(self, scan_idx: Union[int, Sequence[int]]) -> Dict[str, torch.Tensor]:
+    def render_radar(self, scan_idx: Union[int, Sequence[int]],
+                     actor_edits: Optional[ActorEdits] = None) -> Dict[str, torch.Tensor]:
         """Multi-Bernoulli radar output: [n_mb, 7] for one scan index, or [n_scans, n_mb, 7] for a
-        sequence rendered as one batch; n_mb is the scan's rays, or the set decoder's queries."""
+        sequence rendered as one batch; n_mb is the scan's rays, or the set decoder's queries. The
+        actors are edited by ``actor_edits``."""
         single = isinstance(scan_idx, (int, np.integer))
         ids = torch.as_tensor([scan_idx] if single else list(scan_idx), dtype=torch.long, device=self.device)
         radars = self.tables.radars
         layout = SegmentLayout(num_radar_scans=len(ids), rays_per_scan=radars.rays_per_scan)
         outputs = self.model.get_outputs(merge_modality_bundles(None, None, radars.generate_rays(ids)), layout,
-                                         tables=self.model.cast_tables())
+                                         tables=self.model.cast_tables(), actor_edits=actor_edits)
         radar_output = outputs["radar_output"]
         return {"radar_output": radar_output[0] if single else radar_output}
+
+    def _driving_direction(self, cam_idx: int) -> np.ndarray:
+        """The ego's unit driving direction at a camera frame: the parser's camera velocity where it
+        is not ~0, else the difference of the sensor's neighbouring camera positions (+x for a
+        sensor with one frame)."""
+        out = self.outputs
+        v = None
+        if out.camera_velocities is not None:
+            v = np.asarray(out.camera_velocities[cam_idx], np.float64)
+            if np.linalg.norm(v) < 1e-3:
+                v = None
+        if v is None:
+            same = np.where(out.camera_sensor_idxs == out.camera_sensor_idxs[cam_idx])[0]
+            if len(same) < 2:
+                return np.array([1.0, 0.0, 0.0])
+            pos = out.camera_to_worlds[same, :3, 3].astype(np.float64)
+            j = int(np.nonzero(same == cam_idx)[0][0])
+            j0, j1 = (j - 1, j) if j == len(same) - 1 else (j, j + 1)
+            v = pos[j1] - pos[j0]
+        n = np.linalg.norm(v)
+        return (v / n) if n > 1e-6 else np.array([1.0, 0.0, 0.0])
+
+    def _fid_render(self, cam_idx: int, hw: Tuple[int, int], actor_edits: Optional[ActorEdits] = None,
+                    origin_shift: Optional[np.ndarray] = None) -> torch.Tensor:
+        """One render's rgb cut to ``hw`` and clipped to [0, 1] (on the device)."""
+        rgb = self.render_camera(cam_idx, actor_edits=actor_edits, origin_shift=origin_shift)["rgb"]
+        return rgb[: hw[0], : hw[1]].clamp(0.0, 1.0)
+
+    def compute_fid_metrics(self, max_frames: int = 16) -> Dict[str, float]:
+        """The shifted-view FIDs of the first ``max_frames`` eval frames against their images:
+
+        * lane_shift_{0,2,3}_fid: the ray origins moved 0, 2 and 3 m sideways, along the driving
+          direction x z in the ground plane, to the side the parser's ``lane_shift_sign`` gives;
+        * vertical_shift_1_fid: the origins moved 1 m up;
+        * actor_shift_rot_fid / actor_shift_trans_fid: the actors turned by +-0.5 rad, or moved
+          +-2 m sideways in their box frames (two renders a frame).
+
+        Features come from ``FeatureExtractor`` (the VGG-19 trunk); without $NEURADAR_VGG19_WEIGHTS
+        its filters are random and every key ends in ``_vggsurrogate``."""
+        out = self.outputs
+        u = self.config.model.rgb_upsample_factor
+        H, W = out.image_size[0] // u * u, out.image_size[1] // u * u
+        extractor = FeatureExtractor(self.device)
+        cam_ids = [int(c) for c in self.datamanager.eval_camera_indices()][:max_frames]
+        real_feats = extractor(out.images[cam_ids][:, :H, :W].astype(np.float32) / 255.0)
+        sign = float(out.lane_shift_sign or 1)
+        z_up = np.array([0.0, 0.0, 1.0])
+        actor_edits = {
+            "actor_shift_rot": [ActorEdits(rotation=0.5), ActorEdits(rotation=-0.5)],
+            "actor_shift_trans": [ActorEdits(lateral=2.0), ActorEdits(lateral=-2.0)],
+        }
+        fakes = {k: [] for k in ("lane_shift_0", "lane_shift_2", "lane_shift_3", "vertical_shift_1", *actor_edits)}
+        for cam_idx in cam_ids:
+            right = np.cross(self._driving_direction(cam_idx), z_up)
+            right[2] = 0.0  # sideways in the ground plane
+            fakes["lane_shift_0"].append(self._fid_render(cam_idx, (H, W)))
+            for shift in (2.0, 3.0):
+                fakes[f"lane_shift_{shift:g}"].append(self._fid_render(cam_idx, (H, W),
+                                                                       origin_shift=shift * sign * right))
+            fakes["vertical_shift_1"].append(self._fid_render(cam_idx, (H, W), origin_shift=z_up))
+            for family, edits in actor_edits.items():
+                fakes[family] += [self._fid_render(cam_idx, (H, W), actor_edits=e) for e in edits]
+        suffix = "" if has_pretrained_weights() else "_vggsurrogate"
+        return {f"{family}_fid{suffix}": frechet_distance(real_feats, extractor(torch.stack(imgs)))
+                for family, imgs in fakes.items()}
 
     def get_average_eval_image_metrics(self) -> Dict[str, float]:
         """PSNR, SSIM and the LPIPS surrogate over the eval images, with eval rays/s and fps."""

@@ -36,7 +36,8 @@ from neuradar_tpu_torch.utils.params import load_jax_params
 from tests.test_torch_slice import RADAR_FOV, SCENE, perturb, shrink
 
 PORTED = ("neuradar", "neuradar-set", "neuradar-synthetic", "neurad", "neurad-scaleopt", "neurader", "neuradest",
-          "neurader-scaleopt", "neuradest-scaleopt", "neurad-paper", "neurad-2x-paper")
+          "neurader-scaleopt", "neuradest-scaleopt", "neurad-paper", "neurad-2x-paper", "neuradar-vod",
+          "neurad-nuscenes", "neurad-pandaset", "neurad-kittimot", "neurad-argoverse2", "neurad-wod")
 # the JAX package's options the port does not carry: its TPU and multi-device machinery (Pallas
 # switches, remat policies, the packed/dense hash-grid layouts, sharding, several steps a dispatch,
 # the profiler, the viewer), optax's optimizer state dtypes and clipping, and the field variants no
@@ -94,8 +95,8 @@ def test_registry_and_train_listing(capsys):
     assert t_train_script.main(["--help"]) == 0
     out = capsys.readouterr().out
     assert all(f"  {name}:" in out for name in PORTED)
-    with pytest.raises(KeyError, match="neuradar-vod"):
-        get_method("neuradar-vod")
+    with pytest.raises(KeyError, match="nerfacto"):
+        get_method("nerfacto")
 
 
 def _dress(out):

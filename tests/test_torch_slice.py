@@ -23,6 +23,12 @@ from neuradar_tpu_torch.data.dataparsers import synthetic as t_synthetic
 from neuradar_tpu_torch.pipelines import ad_neuradar_pipeline as t_pipeline
 from neuradar_tpu_torch.utils.params import load_jax_params
 
+# One torch thread a process. A parallel run (pytest-xdist) puts several workers on the same cores, and
+# each collects every test file, so this holds for all the port's tests there: torch's OpenMP threads
+# spin while they wait, and several workers' full thread pools on the same cores slow a test down
+# some twentyfold (a ten-step train test: 5 s alone, 75 s beside five busy processes).
+torch.set_num_threads(1)
+
 RTOL = ATOL = 1e-4
 RADAR_FOV = dict(min_azimuth=-0.8, max_azimuth=0.8, min_elevation=-0.08, max_elevation=0.32,
                  azimuth_step=0.1, elevation_step=0.1)
