@@ -47,7 +47,9 @@ Phases, one line each before the final JSON line:
      whole scan ("standalone"); and the renders of the bf16 program's and the
      set model's phases: render_bf16 (K1 forward on the bench frame),
      render_radar_set and eval_radar_set (K1 and K2 at bf16 forward on one
-     scan, and on the eval radar metrics' batch of 3 scans);
+     scan, and on the eval radar metrics' batch of 3 scans); and the render
+     commands' path, render_cli (K1 forward at a render chunk, the float32 K2
+     forward on one scan);
   4. render: the neuradar-synthetic model at full width with seeded random
      weights renders 2 camera frames at 720 x 1296, one 16,384-ray lidar scan
      and 4 radar scans (decoded in the model's 4 groups of 1 scan, the shape of
@@ -118,15 +120,30 @@ Phases, one line each before the final JSON line:
      and the tiny set model's train step (deep supervision, DETR's loss and
      the multi-Bernoulli loss) card against CPU, in float32 with the host's
      Hungarian and in bf16 with the association pinned, by the rules of
-     tests/test_torch_set_decoder.py;
+     tests/test_torch_set_decoder.py; render_pose_agreement: the tiny
+     pipeline's free-pose render (perspective, fisheye, equirectangular and
+     ODS cameras, a scene time, an actor edit) card against CPU, the float
+     renders to the agreement's tolerance and the uint8 images within 1;
   8. cli_train: the train command (scripts/train.py) on neuradar-synthetic at
      full width and batch, 6 steps with every eval cadence and checkpoints
      (all kept), then resumed from its checkpoints to step 8 (only the latest
      kept), then the eval command (scripts/eval.py) on the run; the events
      log must show each cadence at its steps, the checkpoints their steps,
      every metric of the three families must be finite, and K1 and K2 must
-     have launched; the run's logs stay in chiprun_out/runs, its checkpoints
-     are deleted;
+     have launched; the run's logs stay in chiprun_out/runs;
+  8b. cli_render: on that run, before its checkpoints are deleted, the render,
+     export and texture commands, each through its main(argv) in this process:
+     render.py dataset, lane-shift, actor-shift (an actor removed),
+     interpolated, spiral and camera-path (a perspective frame at 720 x 1296
+     and an ODS frame), render_radar.py's six commands at 2 scans, exporter.py
+     pointcloud, radar-pointcloud, cameras, sdf-surface, sdf-mesh and tsdf-mesh
+     at grid 128 and poisson-mesh at grid 64, texture.py on the sdf-mesh at 2
+     cameras; then the closed-loop server on a free port of localhost (/info,
+     /actors, an actor edit, a /render at 720 x 1296 that must return that
+     PNG) and the full-frame render_pose timed alone; each command's seconds
+     and output counts, every frame, scan, point cloud and mesh present and
+     finite; the launches (path render_cli) must show K1 and the float32 K2
+     forward and no other kernel; the outputs are deleted;
   9. learning: scripts/validate_learning.py at the tiny scale, 300 steps on
      the card, bf16 (the dtype of the JAX curve) and then float32, must print
      LEARNING CHECK: PASS; the first- and last-quarter means of both are
@@ -143,13 +160,17 @@ non-zero without printing them.
 
 from __future__ import annotations
 
+import contextlib
 import gc
+import http.client
 import json
 import math
 import re
 import shutil
+import struct
 import subprocess
 import sys
+import threading
 import time
 from dataclasses import replace
 from pathlib import Path
@@ -174,6 +195,7 @@ from neuradar_tpu_torch.data.dataparsers.synthetic import SyntheticDataParser, S
 from neuradar_tpu_torch.engine.optimizers import default_optimizer_groups
 from neuradar_tpu_torch.engine.trainer import Trainer, TrainerConfig
 from neuradar_tpu_torch.model_components import radar_utils
+from neuradar_tpu_torch.model_components.dynamic_actors import ActorEdits
 from neuradar_tpu_torch.model_components.vgg import has_pretrained_weights
 from neuradar_tpu_torch.models.neuradar import radar_decode_groups
 from neuradar_tpu_torch.ops import build, gather
@@ -195,10 +217,16 @@ from neuradar_tpu_torch.ops.volumetric import (
     fused_composite,
 )
 from neuradar_tpu_torch.pipelines.ad_neuradar_pipeline import ADNeuRadarPipeline, ADNeuRadarPipelineConfig
+from neuradar_tpu_torch.scripts import closed_loop
 from neuradar_tpu_torch.scripts import eval as eval_script
+from neuradar_tpu_torch.scripts import exporter as exporter_command
+from neuradar_tpu_torch.scripts import render as render_command
+from neuradar_tpu_torch.scripts import render_radar as render_radar_command
+from neuradar_tpu_torch.scripts import texture as texture_command
 from neuradar_tpu_torch.scripts import train as train_script
 from neuradar_tpu_torch.scripts import validate_learning
 from neuradar_tpu_torch.scripts.probe_gather import bounds_ms
+from neuradar_tpu_torch.utils import meshing
 from neuradar_tpu_torch.utils.timing import call_ms, device_ms, kernels_ms
 
 K1_TOL = dict(rtol=1e-5, atol=1e-6)
@@ -432,7 +460,7 @@ def check_kernels(device: torch.device) -> list:
     # the float32 plain version round each ray's 33-term sums in their own orders, and where the
     # weighted features cancel their two errors together can pass K1_TOL's atol
     S, C = 33, 32
-    for path, R in (("render", 32768), ("train", 113840 // NFF_CHUNKS)):
+    for path, R in (("render", 32768), ("render_cli", 32768), ("train", 113840 // NFF_CHUNKS)):
         alpha = torch.rand((R, S), generator=gen, device=device)
         feats = torch.randn((R, S, C), generator=gen, device=device)
         got = [t.double() for t in composite_sky_fwd(alpha, feats)]
@@ -460,16 +488,18 @@ def check_kernels(device: torch.device) -> list:
                  **_bound(4 * (2 * R * S * C + 3 * R * S + R * C + R), R * S * (3 * C + 12))})
 
     # K2 forward at a radar decode group of the render path, dropout 0 (the 4 scans it renders, in
-    # the model's decode groups: 1 scan of the ZOD FoV each, d_model 48)
+    # the model's decode groups: 1 scan of the ZOD FoV each, d_model 48), and of the render commands'
+    # path, which renders one scan at a time
     B, S, D = _group_scans(ADNeuRadarPipelineConfig().model, len(RENDER_RADAR_SCANS)), ZOD_SCAN_RAYS, 48
-    q, k, v = (torch.randn((B, S, D), generator=gen, device=device) for _ in range(3))
-    got, want = self_attention_fwd(q, k, v), attention_reference(q, k, v)
-    torch.testing.assert_close(got, want, **K2_TOL, msg=lambda m: f"K2 fwd: {m}")
-    rows.append({"name": "self_attention_fwd", **k2, "replaces": "neuradar_tpu/ops/attention.py:176",
-                 "path": "render", "shape": [B, S, D], "dropout": 0.0, "max_abs_err": float((got - want).abs().max()),
-                 **_times(lambda: self_attention_fwd(q, k, v), lambda: attention_reference(q, k, v),
-                          lambda: F.scaled_dot_product_attention(q[:, None], k[:, None], v[:, None])),
-                 **_k2_bound(4 * 4 * B * S * D, 4 * B * S * S * D)})
+    for path in ("render", "render_cli"):
+        q, k, v = (torch.randn((B, S, D), generator=gen, device=device) for _ in range(3))
+        got, want = self_attention_fwd(q, k, v), attention_reference(q, k, v)
+        torch.testing.assert_close(got, want, **K2_TOL, msg=lambda m: f"K2 fwd: {m}")
+        rows.append({"name": "self_attention_fwd", **k2, "replaces": "neuradar_tpu/ops/attention.py:176",
+                     "path": path, "shape": [B, S, D], "dropout": 0.0, "max_abs_err": float((got - want).abs().max()),
+                     **_times(lambda: self_attention_fwd(q, k, v), lambda: attention_reference(q, k, v),
+                              lambda: F.scaled_dot_product_attention(q[:, None], k[:, None], v[:, None])),
+                     **_k2_bound(4 * 4 * B * S * D, 4 * B * S * S * D)})
 
     # K2 forward with dropout and backward at a radar decode group of the train path (the preset decodes
     # its 16 scans in 4 groups of 4), rate 0.1, one seed; a second launch of each must agree bit for bit
@@ -1206,6 +1236,7 @@ def check_tiny_bf16_train_agreement(device: torch.device, set_loss: str = "") ->
 
 
 CLI_RUNS = Path("chiprun_out/runs")
+CLI_RUN_DIR = CLI_RUNS / "smoke" / "neuradar-synthetic"
 CLI_CADENCES = ["--steps_per_eval_batch", "2", "--steps_per_eval_image", "3", "--steps_per_eval_all_images", "4",
                 "--steps_per_eval_all_radars", "4", "--steps_per_save", "3", "--steps_per_log", "1"]
 # the 0-based indices of the steps after which each cadence fires (cadence c: i >= c, i % c == 0),
@@ -1233,46 +1264,273 @@ def _cadence_steps(events: list) -> dict:
 
 
 def cli_train() -> dict:
-    """The train command at full width: 6 steps with every cadence, resumed to 8, then the eval command."""
+    """The train command at full width: 6 steps with every cadence, resumed to 8, then the eval command.
+    The run's checkpoints stay for cli_render; the caller deletes them."""
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     shutil.rmtree(CLI_RUNS, ignore_errors=True)
-    run_dir = CLI_RUNS / "smoke" / "neuradar-synthetic"
+    run_dir = CLI_RUN_DIR
     base = ["neuradar-synthetic", "--output_dir", str(CLI_RUNS), "--experiment_name", "smoke", *CLI_CADENCES]
     events_path = run_dir / "logs" / "events.jsonl"
     report = {}
-    try:
-        seen = 0
-        for run, argv in (("first", [*base, "--max_num_iterations", "6", "--save_only_latest_checkpoint", "false"]),
-                          ("resumed", [*base, "--max_num_iterations", "8", "--load_dir", str(run_dir / "checkpoints")])):
-            t0 = time.perf_counter()
-            _expect(train_script.main(argv) == 0, f"cli_train {run}: the train command failed")
-            seconds = time.perf_counter() - t0
-            gc.collect()
-            torch.cuda.empty_cache()
-            events = [json.loads(line) for line in events_path.read_text().splitlines()]
-            new, seen = events[seen:], len(events)
-            got = _cadence_steps(new)
-            got["checkpoints"] = sorted(int(c.stem.split("-")[1]) for c in (run_dir / "checkpoints").glob("step-*.pt"))
-            step_s = [e["iter_train_time"] for e in new if "iter_train_time" in e]
-            report[run] = {"seconds": seconds, "fired": got, "step_seconds": step_s}
-            _expect(got == CLI_EXPECT[run], f"cli_train {run}: cadences {got}, expected {CLI_EXPECT[run]}")
-            _expect(all(math.isfinite(v) for e in new for k, v in e.items()),
-                    f"cli_train {run}: a logged value is not finite")
-        eval_path = run_dir / "eval_output.json"
-        _expect(eval_script.main(["--load-config", str(run_dir), "--output-path", str(eval_path)]) == 0,
-                "cli_train: the eval command failed")
-        ev = json.loads(eval_path.read_text())
-        results = ev["results"]
-        missing = [k for k in (*IMAGE_METRICS, *LIDAR_METRICS, *RADAR_METRICS) if k not in results]
-        _expect(not missing, f"cli_train eval: metrics missing: {missing}")
-        _expect(all(math.isfinite(v) for v in results.values()), f"cli_train eval: a metric is not finite: {results}")
-        _expect(ev["checkpoint_step"] == 8, f"cli_train eval: loaded step {ev['checkpoint_step']}, expected 8")
-        report["eval"] = {"results": results, "seconds": ev["seconds"], "checkpoint_step": ev["checkpoint_step"]}
-        report["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 2**30
-    finally:
-        shutil.rmtree(run_dir / "checkpoints", ignore_errors=True)  # ~1.8 GB each; the logs stay
+    seen = 0
+    for run, argv in (("first", [*base, "--max_num_iterations", "6", "--save_only_latest_checkpoint", "false"]),
+                      ("resumed", [*base, "--max_num_iterations", "8", "--load_dir", str(run_dir / "checkpoints")])):
+        t0 = time.perf_counter()
+        _expect(train_script.main(argv) == 0, f"cli_train {run}: the train command failed")
+        seconds = time.perf_counter() - t0
+        gc.collect()
+        torch.cuda.empty_cache()
+        events = [json.loads(line) for line in events_path.read_text().splitlines()]
+        new, seen = events[seen:], len(events)
+        got = _cadence_steps(new)
+        got["checkpoints"] = sorted(int(c.stem.split("-")[1]) for c in (run_dir / "checkpoints").glob("step-*.pt"))
+        step_s = [e["iter_train_time"] for e in new if "iter_train_time" in e]
+        report[run] = {"seconds": seconds, "fired": got, "step_seconds": step_s}
+        _expect(got == CLI_EXPECT[run], f"cli_train {run}: cadences {got}, expected {CLI_EXPECT[run]}")
+        _expect(all(math.isfinite(v) for e in new for k, v in e.items()),
+                f"cli_train {run}: a logged value is not finite")
+    eval_path = run_dir / "eval_output.json"
+    _expect(eval_script.main(["--load-config", str(run_dir), "--output-path", str(eval_path)]) == 0,
+            "cli_train: the eval command failed")
+    ev = json.loads(eval_path.read_text())
+    results = ev["results"]
+    missing = [k for k in (*IMAGE_METRICS, *LIDAR_METRICS, *RADAR_METRICS) if k not in results]
+    _expect(not missing, f"cli_train eval: metrics missing: {missing}")
+    _expect(all(math.isfinite(v) for v in results.values()), f"cli_train eval: a metric is not finite: {results}")
+    _expect(ev["checkpoint_step"] == 8, f"cli_train eval: loaded step {ev['checkpoint_step']}, expected 8")
+    report["eval"] = {"results": results, "seconds": ev["seconds"], "checkpoint_step": ev["checkpoint_step"]}
+    report["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 2**30
     return report
+
+
+# the render commands on the train command's run (its scene: the preset's synthetic one, 24 frames at
+# 96 x 156, 3 eval frames a sensor): the camera paths and the closed-loop server's render at the render
+# phase's frame size; the SDF and TSDF grids of 128 voxels a side, the Poisson grid of 64
+RENDER_CLI_DIR = Path("build/render_cli")  # deleted at the end: a mesh can take hundreds of MB
+RENDER_CLI_HW = (720, 1296)
+RENDER_CLI_GRID = 128
+RENDER_CLI_POISSON_GRID = 64
+
+
+def _png_hw(data: bytes) -> list:
+    """[height, width] of a PNG, from its header."""
+    _expect(data[:8] == b"\x89PNG\r\n\x1a\n", "not a PNG")
+    width, height = struct.unpack(">II", data[16:24])
+    return [height, width]
+
+
+def _pngs(out: Path) -> dict:
+    """Every PNG under ``out``: its [height, width], by file name."""
+    return {str(p.relative_to(out)): _png_hw(p.read_bytes()) for p in sorted(out.rglob("*.png"))}
+
+
+def _ply_points(path: Path) -> np.ndarray:
+    """The float32 points [N, 3] of a point PLY of exporter.write_ply (no colors)."""
+    data = path.read_bytes()
+    end = data.index(b"end_header\n") + len(b"end_header\n")
+    return np.frombuffer(data[end:], np.float32).reshape(-1, 3)
+
+
+# the host (and, for marching_tetrahedra, device) work of the meshing commands, timed per function
+MESHING_TIMED = ("tsdf_fuse", "marching_tetrahedra", "estimate_normals", "screened_poisson_mesh", "vertex_normals")
+
+
+@contextlib.contextmanager
+def _timed_meshing(seconds: dict):
+    """Sum each MESHING_TIMED function's seconds into ``seconds`` while the block runs (the commands
+    look the functions up in utils/meshing.py when they call them; screened_poisson_mesh's time
+    includes its marching_tetrahedra)."""
+    originals = {name: getattr(meshing, name) for name in MESHING_TIMED}
+
+    def timed(name, fn):
+        def call(*args, **kwargs):
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            seconds[name] = seconds.get(name, 0.0) + time.perf_counter() - t0
+            return out
+        return call
+
+    for name, fn in originals.items():
+        setattr(meshing, name, timed(name, fn))
+    try:
+        yield
+    finally:
+        for name, fn in originals.items():
+            setattr(meshing, name, fn)
+
+
+def _mesh_counts(path: Path) -> dict:
+    verts, faces, colors = meshing.read_ply_mesh(path)
+    _expect(np.isfinite(verts).all() and (len(faces) == 0 or (faces.min() >= 0 and faces.max() < len(verts))),
+            f"{path}: vertices not finite or faces out of range")
+    return {"verts": len(verts), "faces": len(faces), "colored": colors is not None}
+
+
+def cli_render(run_dir: Path, device: torch.device = torch.device("cuda")) -> dict:
+    """The render, export and texture commands on the train command's run, each through its
+    main(argv) on the card in this process, then the closed-loop server on a free port of localhost:
+    /info, /actors, an actor edit and a /render of RENDER_CLI_HW. Each command's seconds and output
+    counts; every frame, scan, point cloud and mesh must be present and finite."""
+    out = RENDER_CLI_DIR
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    pipe = render_command.load_pipeline(run_dir, device)
+    cam = int(pipe.datamanager.eval_camera_indices()[0])
+    c2w = np.asarray(pipe.outputs.camera_to_worlds[cam], np.float32)
+    r2w = np.asarray(pipe.outputs.radar_to_worlds, np.float32)
+    scans = [int(i) for i in pipe.datamanager.eval_radar_indices()][:2]
+
+    def path_file(name, poses, **spec):
+        f = out / f"{name}.json"
+        f.write_text(json.dumps({"camera_path": [{"camera_to_world": np.concatenate([p[:3], [[0, 0, 0, 1]]]).reshape(
+            -1).tolist()} for p in poses], **spec}))
+        return str(f)
+
+    h, w = RENDER_CLI_HW
+    cam_path = path_file("camera_path", [c2w], render_height=h, render_width=w)
+    ods_path = path_file("ods_path", [c2w], render_height=h, render_width=w, camera_type="omnidirectional")
+    radar_path = path_file("radar_path", [r2w[i] for i in scans])
+    # the commands render on the card by default; a rehearsal on the CPU names its device
+    run = ["--load-config", str(run_dir), *(["--device", str(device)] if device.type != "cuda" else [])]
+    exports = out / "exports"
+    commands = [
+        *(("render", cmd, render_command, [cmd, *run, "--output-dir", str(out / "camera"), *extra])
+          for cmd, extra in (("dataset", ["--max-frames", "2"]), ("lane-shift", ["--max-frames", "1"]),
+                             ("actor-shift", ["--max-frames", "1", "--actor-remove"]),
+                             ("interpolated", ["--max-frames", "2", "--steps-per-transition", "2"]),
+                             ("spiral", ["--max-frames", "2"]))),
+        ("render", "camera-path", render_command, ["camera-path", *run, "--output-dir", str(out / "camera"),
+                                                   "--camera-path-filename", cam_path]),
+        ("render", "camera-path-ods", render_command, ["camera-path", *run, "--output-dir", str(out / "camera_ods"),
+                                                       "--camera-path-filename", ods_path]),
+        *(("render_radar", cmd, render_radar_command, [cmd, *run, "--output-dir", str(out / "radar"), "--max-scans",
+                                                       "2", *extra])
+          for cmd, extra in (("dataset", []), ("pose-shift", []), ("actor-shift", ["--actor-lateral", "2.0"]),
+                             ("interpolated", []), ("full-sensor-set", []),
+                             ("camera-path", ["--camera-path-filename", radar_path]))),
+        *(("exporter", cmd, exporter_command, [cmd, *run, "--output-path", str(exports / f"{cmd}.ply"), "--max-scans",
+                                               "2", "--grid-resolution", str(grid)])
+          for cmd, grid in (("pointcloud", RENDER_CLI_GRID), ("radar-pointcloud", RENDER_CLI_GRID),
+                            ("cameras", RENDER_CLI_GRID), ("sdf-surface", RENDER_CLI_GRID), ("sdf-mesh", RENDER_CLI_GRID),
+                            ("tsdf-mesh", RENDER_CLI_GRID), ("poisson-mesh", RENDER_CLI_POISSON_GRID))),
+        ("texture", "texture", texture_command, [*run, "--input-mesh", str(exports / "sdf-mesh.ply"), "--output-path",
+                                                 str(exports / "textured.ply"), "--max-cameras", "2"]),
+    ]
+    report = {"commands": []}
+    for script, name, module, argv in commands:
+        seen = set(out.rglob("*"))
+        meshing_s = {}
+        t0 = time.perf_counter()
+        with _timed_meshing(meshing_s):
+            _expect(module.main(argv) == 0, f"cli_render: {script} {name} failed")
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        written = sorted(p for p in set(out.rglob("*")) - seen if p.is_file())
+        counts = {"files": len(written), "pngs": sum(p.suffix == ".png" for p in written),
+                  **({"meshing_seconds": meshing_s} if meshing_s else {})}
+        for p in written:
+            if p.suffix == ".json" and p.parent.name in ("dataset", "pose-shift", "actor-shift", "interpolated",
+                                                         "camera-path") and script == "render_radar":
+                pts = np.asarray(json.loads(p.read_text())["points"], np.float64).reshape(-1, 3)
+                _expect(np.isfinite(pts).all(), f"cli_render: {p} has points that are not finite")
+                counts["radar_points"] = counts.get("radar_points", 0) + len(pts)
+                counts["scans"] = counts.get("scans", 0) + 1
+            elif p.suffix == ".ply" and script in ("exporter", "render_radar") and not p.stem.endswith("mesh"):
+                pts = _ply_points(p)
+                _expect(np.isfinite(pts).all(), f"cli_render: {p} has points that are not finite")
+                counts[f"{p.stem}_points"] = len(pts)
+            elif p.suffix == ".ply":
+                counts[p.stem] = _mesh_counts(p)
+        report["commands"].append({"script": script, "command": name, "seconds": seconds, **counts})
+        phase("cli_render_command", **report["commands"][-1])
+        _expect(counts["files"] > 0, f"cli_render: {script} {name} wrote nothing")
+
+    frames = _pngs(out / "camera")
+    u = pipe.config.model.rgb_upsample_factor
+    H, W = pipe.outputs.image_size
+    _expect(frames["camera_path/frame_00000.png"] == [h, w]
+            and _pngs(out / "camera_ods")["camera_path/frame_00000.png"] == [2 * h, w]
+            and frames[f"dataset/frame_{cam:05d}.png"] == [H // u * u, W // u * u]
+            and sum(k.startswith("interpolated/") for k in frames) == 2,
+            f"cli_render: frames {frames}")
+    by_cmd = {(c["script"], c["command"]): c for c in report["commands"]}
+    _expect(by_cmd[("render_radar", "dataset")].get("scans") == len(scans)
+            and by_cmd[("exporter", "pointcloud")]["pointcloud_points"] > 0
+            and by_cmd[("exporter", "sdf-surface")]["sdf-surface_points"] > 0
+            and by_cmd[("exporter", "sdf-mesh")]["sdf-mesh"]["faces"] > 0
+            and by_cmd[("exporter", "tsdf-mesh")]["tsdf-mesh"]["faces"] > 0
+            and by_cmd[("exporter", "poisson-mesh")]["poisson-mesh"]["faces"] > 0
+            and by_cmd[("texture", "texture")]["textured"]["colored"],
+            f"cli_render: counts {report['commands']}")
+
+    # the closed-loop server, and the full-frame render_pose it serves, timed on its own
+    state = closed_loop.ClosedLoopState(pipe)
+    server = closed_loop.serve(state, 0, host="127.0.0.1")
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    try:
+        conn = http.client.HTTPConnection("127.0.0.1", server.server_address[1], timeout=300)
+
+        def request(method, path, body=None):
+            conn.request(method, path, body=None if body is None else json.dumps(body))
+            resp = conn.getresponse()
+            return resp.status, resp.getheader("Content-Type"), resp.read()
+
+        status, _, info = request("GET", "/info")
+        _expect(status == 200 and json.loads(info)["image_size"] == [H, W], f"/info: {status} {info[:200]}")
+        status, _, actors = request("GET", "/actors")
+        n_actors = len(json.loads(actors)["trajectories"])
+        _expect(status == 200 and n_actors == len(pipe.outputs.trajectories), f"/actors: {status}")
+        _expect(request("POST", "/actors", {"index": 0, "lateral": 1.0, "rotation": 0.2})[0] == 200, "POST /actors")
+        time_s = float(pipe.outputs.camera_times[cam])
+        t0 = time.perf_counter()
+        status, ctype, png = request("POST", "/render", {"pose": c2w.tolist(), "time": time_s, "hw": [h, w]})
+        render_s = time.perf_counter() - t0
+        _expect(status == 200 and ctype == "image/png" and _png_hw(png) == [h, w],
+                f"/render: {status} {ctype} {png[:200] if status != 200 else _png_hw(png)}")
+        conn.close()
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=30)
+    rgb, pose_s = _timed(lambda: pipe.render_pose(c2w, hw=RENDER_CLI_HW, time_s=time_s, actor_edits=state.edits))
+    _expect(rgb.shape == (h, w, 3), f"render_pose: {rgb.shape}")
+    report["server"] = {"render_seconds": render_s, "png_bytes": len(png), "hw": [h, w], "actors": n_actors}
+    report["render_pose_full_frame"] = {"seconds": pose_s, "hw": [h, w], "rays": (h // u) * (w // u)}
+    report["seconds_total"] = sum(c["seconds"] for c in report["commands"]) + render_s
+    shutil.rmtree(out, ignore_errors=True)
+    del pipe, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return report
+
+
+def check_tiny_render_pose_agreement(device: torch.device) -> dict:
+    """The tiny pipeline's render_pose on the card against the CPU (same weights): the float renders
+    of pose_camera's table for a perspective, a fisheye, an equirectangular and an ODS camera, with a
+    scene time and an actor edit, to TINY_TOL; the uint8 images within one unit."""
+    gpu, cpu = _tiny_pipeline(device), _tiny_pipeline("cpu")
+    cpu.model.load_state_dict({k: v.cpu() for k, v in gpu.model.state_dict().items()})
+    c2w = np.asarray(cpu.outputs.camera_to_worlds[2], np.float32)
+    edits = ActorEdits(lateral=1.5, rotation=0.3)
+    worst, worst_u8 = 0.0, 0
+    for camera_type in (CameraType.PERSPECTIVE, CameraType.FISHEYE, CameraType.EQUIRECTANGULAR,
+                        CameraType.OMNIDIRECTIONALSTEREO_L):
+        rend = {}
+        for name, pipe in (("gpu", gpu), ("cpu", cpu)):
+            cameras, grid = pipe.pose_camera(c2w, (24, 36), time_s=1.0, camera_type=int(camera_type))
+            with torch.inference_mode():
+                rend[name] = pipe.render_grid(cameras, 0, grid, edits)
+        for key in ("rgb", "depth", "accumulation"):
+            g, c = rend["gpu"][key].cpu(), rend["cpu"][key]
+            torch.testing.assert_close(g, c, **TINY_TOL, msg=lambda m, key=key: f"render_pose {camera_type} {key}: {m}")
+            worst = max(worst, float((g - c).abs().max()))
+        u8 = [p.render_pose(c2w, hw=(24, 36), time_s=1.0, camera_type=int(camera_type), actor_edits=edits)
+              for p in (gpu, cpu)]
+        worst_u8 = max(worst_u8, int(np.abs(u8[0].astype(np.int64) - u8[1]).max()))
+    _expect(worst_u8 <= 1, f"render_pose uint8 images differ by {worst_u8}")
+    return {"max_abs_err": worst, "max_uint8_diff": worst_u8, **TINY_TOL}
 
 
 # the JAX package's tiny learning curve on the CPU (bfloat16, 4 steps a dispatch), for comparison only,
@@ -1422,6 +1680,7 @@ def main() -> int:
     phase("train_presets_agreement", **check_tiny_train_agreement(device, preset="neurad"))
 
     phase("agreement", max_abs_err=check_tiny_agreement(device), **TINY_TOL)
+    phase("render_pose_agreement", **check_tiny_render_pose_agreement(device))
     phase("train_agreement", **check_tiny_train_agreement(device))
     phase("train_bf16_agreement", **check_tiny_bf16_train_agreement(device))
     for set_loss in ("detr", "mb"):
@@ -1430,15 +1689,28 @@ def main() -> int:
 
     for k in COUNTED_KERNELS:
         k.launches = 0
-    report = cli_train()
-    cli_launches = {k.__name__: k.launches for k in PATH_KERNELS}
-    phase("cli_train", launches=cli_launches, **report)
-    _expect(all(n > 0 for n in cli_launches.values()), f"a kernel of the train command never launched: {cli_launches}")
+    try:
+        report = cli_train()
+        cli_launches = {k.__name__: k.launches for k in PATH_KERNELS}
+        phase("cli_train", launches=cli_launches, **report)
+        _expect(all(n > 0 for n in cli_launches.values()),
+                f"a kernel of the train command never launched: {cli_launches}")
+        # the render and export commands on that run: K1 and the float32 K2 forward alone
+        _zero_counts()
+        t0 = time.perf_counter()
+        report = cli_render(CLI_RUN_DIR)
+        render_cli_launches = _counts()
+        phase("cli_render", seconds=time.perf_counter() - t0, launches=render_cli_launches, gpu=smi.splitlines()[0],
+              **report)
+        _expect(all((n > 0) == (k in ("composite_sky_fwd", "self_attention_fwd"))
+                    for k, n in render_cli_launches.items()), f"render_cli: launches {render_cli_launches}")
+    finally:
+        shutil.rmtree(CLI_RUN_DIR / "checkpoints", ignore_errors=True)  # ~1.8 GB each; the logs stay
 
     phase("learning", **learning())
 
     path_launches = {"render": render_launches, "train": launches, **bf16_launches, **set_launches,
-                     **preset_launches}
+                     **preset_launches, "render_cli": render_cli_launches}
     for row in rows:
         if row["path"] != "standalone":
             row["launches"] = path_launches[row["path"]][row["name"]]

@@ -117,6 +117,15 @@ class NeuRADField(nn.Module):
         return {"feature": feature, "sdf": geo_out, "alpha": self.sdf_to_density(geo_out)}
 
 
+def field_query_geometry(field: NeuRADField, positions: torch.Tensor, std: float = 0.05) -> torch.Tensor:
+    """The geometry MLP's raw output (the SDF) at world positions [..., 3] -> [..., 1]: the static
+    grid alone (no actor candidates), each position a Gaussian of std ``std`` (the SDF exports)."""
+    g = GaussiansStd(mean=positions, std=torch.full((*positions.shape[:-1], 1), std, dtype=positions.dtype,
+                                                    device=positions.device))
+    feats, _ = field.hashgrid(g, None, None)
+    return field.mlp_geo(feats)[..., :1]
+
+
 class NeuRADProposalField(nn.Module):
     """Density-only proposal field: hash grid -> 2-layer MLP -> exp."""
 

@@ -53,6 +53,7 @@ from neuradar_tpu_torch.fields.neurad_field import (
     NeuRADFieldConfig,
     NeuRADProposalField,
     NeuRADProposalFieldConfig,
+    field_query_geometry,
 )
 from neuradar_tpu_torch.model_components.cnns import RGBDecoder
 from neuradar_tpu_torch.model_components.dynamic_actors import (
@@ -332,6 +333,11 @@ class NeuRadarModel(nn.Module):
             else:
                 outs.append(decoder.decode(*args))
         return tuple(torch.cat([o[j] for o in outs], dim=0 if j < 2 else 1) for j in range(len(outs[0])))
+
+    def query_geometry(self, positions: torch.Tensor) -> torch.Tensor:
+        """The field's raw SDF at world positions [..., 3] -> [..., 1] (fields/neurad_field.py
+        ``field_query_geometry``)."""
+        return field_query_geometry(self.field, positions)
 
     def decode_camera_features(self, features: torch.Tensor, patch_size: Tuple[int, int]) -> torch.Tensor:
         """Rendered features [h*w, C] -> rgb [1, h*u, w*u, 3] through the upsampling CNN."""

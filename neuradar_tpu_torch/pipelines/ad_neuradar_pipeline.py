@@ -2,13 +2,17 @@
 render entry points and the eval-metric loops (port of the JAX package's
 pipelines/ad_neuradar_pipeline.py: the constructor, ``make_train_loss_fn``,
 ``make_eval_loss_fn``, ``render_camera``, ``render_lidar``, ``render_radar``,
-``get_average_eval_{image,lidar,radar}_metrics`` and the shifted-view FID
-evals, ``compute_fid_metrics``). The renders take actor edits, and
+``get_average_eval_{image,lidar,radar}_metrics``, the shifted-view FID
+evals, ``compute_fid_metrics``, and the free-pose renders of the render
+commands and the closed-loop server, ``viewer_intrinsics``, ``render_pose``
+and ``radar_points_world``). The renders take actor edits, and
 ``render_camera`` a world offset of its ray origins.
 
 Everything runs on one explicit ``device``; there is no fallback to another.
 The render methods return tensors on that device (the JAX package returns
-numpy arrays), apart from the host-side lidar ``points`` and ``num_valid``.
+numpy arrays), apart from the host-side lidar ``points`` and ``num_valid``
+and the host images and points of ``render_pose`` and ``radar_points_world``,
+which return what the JAX package's return.
 The metric loops render on the device and compute the metrics on the host
 with numpy and scipy, as the JAX package does. Under a bf16 ``compute_dtype``
 with ``hoist_table_cast`` the train loss, the eval loss and every render cast
@@ -26,7 +30,7 @@ from typing import Callable, Dict, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
-from neuradar_tpu_torch.cameras.cameras import generate_camera_rays
+from neuradar_tpu_torch.cameras.cameras import Cameras, generate_camera_rays
 from neuradar_tpu_torch.data.datamanager import (
     ADDataManager,
     ADDataManagerConfig,
@@ -41,6 +45,7 @@ from neuradar_tpu_torch.model_components.fid import FeatureExtractor, Perceptual
 from neuradar_tpu_torch.model_components.gospa import calculate_gospa
 from neuradar_tpu_torch.model_components.vgg import has_pretrained_weights
 from neuradar_tpu_torch.models.neuradar import NeuRadarModel, NeuRadarModelConfig, SceneMeta, SegmentLayout
+from neuradar_tpu_torch.utils.colormaps import apply_depth_colormap, apply_float_colormap
 from neuradar_tpu_torch.utils.params import init_params
 
 
@@ -110,16 +115,23 @@ class ADNeuRadarPipeline:
     @torch.inference_mode()
     def render_camera(self, cam_idx: int, actor_edits: Optional[ActorEdits] = None,
                       origin_shift: Optional[np.ndarray] = None) -> Dict[str, torch.Tensor]:
-        """Full-image render: one ray per u x u pixel block, chunked at
-        eval_num_rays_per_chunk (the last chunk padded by repeating its last
-        ray), then the upsampling CNN -> rgb [H, W, 3], depth and
-        accumulation [H/u, W/u]. ``actor_edits`` moves or removes actors;
-        ``origin_shift`` [3] is added to every ray origin (the world offset of
-        the shifted-view FID evals)."""
+        """Full-image render: one ray per u x u pixel block, then the upsampling CNN -> rgb
+        [H, W, 3], depth and accumulation [H/u, W/u]. ``actor_edits`` moves or removes actors;
+        ``origin_shift`` [3] is added to every ray origin (the world offset of the shifted-view FID
+        evals)."""
+        u = self.config.model.rgb_upsample_factor
+        H, W = self.outputs.image_size
+        return self.render_grid(self.tables.cameras, cam_idx, (H // u, W // u), actor_edits, origin_shift)
+
+    def render_grid(self, cameras: Cameras, cam_idx: int, hw: Tuple[int, int],
+                     actor_edits: Optional[ActorEdits] = None,
+                     origin_shift: Optional[np.ndarray] = None) -> Dict[str, torch.Tensor]:
+        """An h x w grid of rays of camera ``cam_idx`` of ``cameras``, one at the centre of each
+        u x u pixel block, chunked at eval_num_rays_per_chunk (the last chunk padded by repeating
+        its last ray), then the upsampling CNN: rgb [h*u, w*u, 3], depth and accumulation [h, w]."""
         m = self.config.model
         u = m.rgb_upsample_factor
-        H, W = self.outputs.image_size
-        h, w = H // u, W // u
+        h, w = hw
         rows = torch.arange(h, device=self.device) * u + u // 2
         cols = torch.arange(w, device=self.device) * u + u // 2
         rr, cc = torch.meshgrid(rows, cols, indexing="ij")
@@ -136,7 +148,7 @@ class ADNeuRadarPipeline:
         outs = []
         for i in range(0, coords.shape[0], chunk):
             cam_ids = torch.full((chunk,), cam_idx, dtype=torch.long, device=self.device)
-            rays = generate_camera_rays(self.tables.cameras, cam_ids, coords[i : i + chunk])
+            rays = generate_camera_rays(cameras, cam_ids, coords[i : i + chunk])
             if shift is not None:
                 rays = dataclasses.replace(rays, origins=rays.origins + shift)
             bundle = merge_modality_bundles(rays, None, None)
@@ -146,6 +158,55 @@ class ADNeuRadarPipeline:
         acc = torch.cat([o["accumulation"] for o in outs])[:n_rays]
         rgb = self.model.decode_camera_features(features, (h, w))[0]
         return {"rgb": rgb, "depth": depth.reshape(h, w), "accumulation": acc.reshape(h, w)}
+
+    def viewer_intrinsics(self, hw: Tuple[int, int]) -> Tuple[float, float, float, float]:
+        """(fx, fy, cx, cy) of a free-pose render at ``hw``: the scene's first camera's focal length
+        scaled to the width, the principal point at the centre."""
+        fx = float(self.outputs.intrinsics[0, 0]) * hw[1] / float(self.outputs.image_size[1])
+        return fx, fx, hw[1] / 2.0, hw[0] / 2.0
+
+    def pose_camera(self, c2w: np.ndarray, hw: Tuple[int, int], time_s: float = 0.0,
+                    camera_type: int = 1) -> Tuple[Cameras, Tuple[int, int]]:
+        """The one-camera table of a free-pose render at ``hw`` cut to multiples of the upsample
+        factor u, and its ray grid (h, w) = (H/u, W/u). A perspective camera takes
+        viewer_intrinsics; every other ``camera_type`` (fisheye included, as in the JAX package)
+        takes fx = W/2, so that (col - cx) / fx spans [-1, 1] across the width."""
+        u = self.config.model.rgb_upsample_factor
+        H, W = hw[0] // u * u, hw[1] // u * u
+        fx = self.viewer_intrinsics((H, W))[0] if camera_type == 1 else W / 2.0
+
+        def one(x, dtype=torch.float32):
+            return torch.tensor([[x]], dtype=dtype, device=self.device)
+
+        cameras = Cameras(
+            camera_to_worlds=torch.as_tensor(np.asarray(c2w, np.float32)[:3, :4], device=self.device)[None],
+            fx=one(fx), fy=one(fx), cx=one(W / 2), cy=one(H / 2),
+            width=one(W, torch.int32), height=one(H, torch.int32), camera_type=one(camera_type, torch.int32),
+            times=one(time_s), metadata={"sensor_idxs": one(0, torch.int32)},
+        )
+        return cameras, (H // u, W // u)
+
+    @torch.inference_mode()
+    def render_pose(self, c2w: np.ndarray, hw: Tuple[int, int] = (96, 156),
+                    actor_edits: Optional[ActorEdits] = None, time_s: float = 0.0, output: str = "rgb",
+                    camera_type: int = 1) -> np.ndarray:
+        """A render from any pose ``c2w`` [3, 4] at ``hw`` (cut to multiples of the upsample
+        factor u; the camera of ``pose_camera``), the actors at the scene time ``time_s`` and edited
+        by ``actor_edits``; a host uint8 image. ``output``: "rgb" (the CNN's, [H, W, 3]), "depth"
+        (colormapped and faded by the accumulation) or "accumulation" (colormapped), both
+        [H/u, W/u, 3]."""
+        cameras, grid = self.pose_camera(c2w, hw, time_s, camera_type)
+        rend = self.render_grid(cameras, 0, grid, actor_edits)
+        if output == "rgb":
+            return (rend["rgb"].clamp(0, 1) * 255).to(torch.uint8).cpu().numpy()
+        acc = rend["accumulation"].double().cpu().numpy()[..., None]
+        if output == "depth":
+            img = apply_depth_colormap(rend["depth"].cpu().numpy()[..., None], accumulation=acc)
+        elif output == "accumulation":
+            img = apply_float_colormap(np.clip(acc, 0, 1))
+        else:
+            raise ValueError(f"unknown render output {output!r}")
+        return (np.clip(img, 0, 1) * 255).astype(np.uint8)
 
     @torch.inference_mode()
     def render_lidar(self, scan_idx: int, max_points: int = 16384,
@@ -190,6 +251,22 @@ class ADNeuRadarPipeline:
                                          tables=self.model.cast_tables(), actor_edits=actor_edits)
         radar_output = outputs["radar_output"]
         return {"radar_output": radar_output[0] if single else radar_output}
+
+    def radar_points_world(self, time_s: float = 0.0, threshold: float = 0.5,
+                           actor_edits: Optional[ActorEdits] = None) -> np.ndarray:
+        """The predicted radar detections of the scan nearest ``time_s`` as world points [K, 3]
+        float32 (K may be 0; none for a scene without radar): the multi-Bernoulli means whose
+        existence probability exceeds ``threshold`` (the deterministic euclidean draw)."""
+        out = self.outputs
+        if out.radar_to_worlds is None or not len(out.radar_to_worlds):
+            return np.zeros((0, 3), np.float32)
+        times = np.atleast_1d(out.radar_times if out.radar_times is not None else [0.0])
+        scan_idx = int(np.argmin(np.abs(times - time_s)))
+        radar_output = self.render_radar(scan_idx, actor_edits)["radar_output"]
+        pts, keep = radar_utils.sample_radar_points(radar_output, "euclidean", threshold=threshold)
+        pts = pts[keep].cpu().numpy()
+        r2w = np.asarray(out.radar_to_worlds[scan_idx], np.float64)
+        return (pts @ r2w[:3, :3].T + r2w[:3, 3]).astype(np.float32)
 
     def _driving_direction(self, cam_idx: int) -> np.ndarray:
         """The ego's unit driving direction at a camera frame: the parser's camera velocity where it
