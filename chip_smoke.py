@@ -226,7 +226,7 @@ from neuradar_tpu_torch.scripts import texture as texture_command
 from neuradar_tpu_torch.scripts import train as train_script
 from neuradar_tpu_torch.scripts import validate_learning
 from neuradar_tpu_torch.scripts.probe_gather import bounds_ms
-from neuradar_tpu_torch.utils import meshing
+from neuradar_tpu_torch.utils import meshing, trace
 from neuradar_tpu_torch.utils.timing import call_ms, device_ms, kernels_ms
 
 K1_TOL = dict(rtol=1e-5, atol=1e-6)
@@ -825,15 +825,16 @@ def train_set(device: torch.device) -> dict:
     steps = []
     for step in range(SET_AUCTION_STEPS + 1):
         m.loss.radar_assignment = "auction" if step < SET_AUCTION_STEPS else "hungarian"
-        calls, sync_s, solve_s = hungarian.calls, hungarian.sync_seconds, hungarian.solve_seconds
         torch.cuda.reset_peak_memory_stats()
-        (losses, metrics), dt = _timed(trainer.train_step)
+        with trace.recording():
+            (losses, metrics), dt = _timed(trainer.train_step)
+            snap = trace.snapshot()
         values = {k: float(v) for k, v in losses.items()}
         steps.append({"step": step, "assignment": m.loss.radar_assignment, "seconds": dt,
                       "rays_per_s": layout.total / dt, "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30,
-                      "hungarian_calls": hungarian.calls - calls,
-                      "hungarian_sync_ms": (hungarian.sync_seconds - sync_s) * 1e3,
-                      "hungarian_solve_ms": (hungarian.solve_seconds - solve_s) * 1e3})
+                      "hungarian_calls": snap.total("hungarian_calls"),
+                      "hungarian_sync_ms": sum(s.host_ms for s in snap.spans if s.name == "host_sync/hungarian"),
+                      "hungarian_solve_ms": sum(s.host_ms for s in snap.spans if s.name == "hungarian/solve")})
         phase("train_set_step", **steps[-1], finite=_finite_dict(values), losses=values,
               metrics={k: float(v) for k, v in metrics.items()})
         _expect(_finite_dict(values) and "radar_aux_loss" in values, f"set train step {step}: {values}")

@@ -27,6 +27,7 @@ from typing import Dict, Optional
 import torch
 
 from neuradar_tpu_torch.cameras.rays import RayBundle
+from neuradar_tpu_torch.utils import trace
 from neuradar_tpu_torch.utils.math import normalize_with_norm
 
 
@@ -71,7 +72,10 @@ class Cameras:
     metadata: Dict[str, torch.Tensor] = field(default_factory=dict)
 
     def __post_init__(self):
-        unknown = {int(t) for t in torch.unique(self.camera_type).tolist()} - {int(t) for t in CameraType}
+        with trace.host_sync("camera_types"):
+            types = torch.unique(self.camera_type)
+        with trace.host_sync("camera_types"):
+            unknown = {int(t) for t in types.tolist()} - {int(t) for t in CameraType}
         if unknown:
             raise ValueError(f"unknown camera types {sorted(unknown)}")
         if self.distortion_params is not None and self.distortion_params.shape[-1] not in (6, 12):

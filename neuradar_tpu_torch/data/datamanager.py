@@ -19,7 +19,6 @@ from typing import Dict, Optional
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from neuradar_tpu_torch.cameras.cameras import Cameras, generate_camera_rays
 from neuradar_tpu_torch.cameras.lidars import Lidars
@@ -27,6 +26,7 @@ from neuradar_tpu_torch.cameras.radars import Radars, fov_grid
 from neuradar_tpu_torch.cameras.rays import RayBundle
 from neuradar_tpu_torch.data.dataparsers.base import DataparserOutputs
 from neuradar_tpu_torch.models.neuradar import SegmentLayout
+from neuradar_tpu_torch.utils import trace
 
 
 @dataclass
@@ -177,7 +177,7 @@ def build_train_bundle(tables: SensorTables, batch: Dict[str, torch.Tensor], lay
         offsets = torch.stack([rr.reshape(-1), cc.reshape(-1)], dim=-1)  # [ps*ps, 2]
         coords = batch["patch_tl"][:, None, :].long() + offsets[None]
         cam_idx = torch.repeat_interleave(batch["cam_frame_idx"].long(), ps * ps)
-        with record_function("ray_generation"):
+        with trace.span("ray_generation"):
             cam_bundle = generate_camera_rays(tables.cameras, cam_idx, coords.reshape(-1, 2))
     if layout.num_lidar > 0:
         lidar_bundle = tables.lidars.generate_rays(batch["lidar_scan_idx"], batch["lidar_points"])
@@ -346,14 +346,17 @@ class ADDataManager:
         self._thread.start()
 
     def next_train(self) -> Dict[str, np.ndarray]:
-        if self._queue is not None:
+        """The next host batch: the prefetch queue's, waiting for the worker, or one drawn now. The
+        span ``train/next_batch`` covers the wait or the draw."""
+        with trace.span("train/next_batch"):
+            if self._queue is None:
+                return self.sample_train_batch()
             while True:  # bounded waits, so a dead worker raises instead of hanging
                 try:
                     return self._queue.get(timeout=5.0)
                 except queue.Empty:
                     if self._worker_error is not None:
                         raise RuntimeError("prefetch worker died") from self._worker_error
-        return self.sample_train_batch()
 
     def stop(self) -> None:
         """Stop the prefetch thread and wait for it."""

@@ -30,11 +30,11 @@ from typing import Any, Dict, Optional, Tuple, Union
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from neuradar_tpu_torch.engine.optimizers import GroupedOptimizer, OptimizerGroupConfig, default_optimizer_groups
 from neuradar_tpu_torch.model_components import radar_utils
 from neuradar_tpu_torch.pipelines.ad_neuradar_pipeline import ADNeuRadarPipeline, ADNeuRadarPipelineConfig
+from neuradar_tpu_torch.utils import trace
 from neuradar_tpu_torch.utils.writer import EventWriter
 
 
@@ -128,16 +128,17 @@ class Trainer:
 
     def train_step(self) -> Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
         """One optimization step; returns (loss terms with their 'total', metrics) as detached
-        device scalars."""
-        batch = self.pipeline.datamanager.next_train()
-        self.model.train()
-        self.optimizer.zero_grad()
-        with record_function("train/forward"):
-            total, loss_dict, metrics = self._loss_fn(batch, self.generator)
-        total.backward()
-        with record_function("train/optimizer"):
-            self.optimizer.step(self.step)
-        self.step += 1
+        device scalars. The span ``train/step`` covers it."""
+        with trace.span("train/step", unit=True):
+            batch = self.pipeline.datamanager.next_train()
+            self.model.train()
+            self.optimizer.zero_grad()
+            with trace.span("train/forward"):
+                total, loss_dict, metrics = self._loss_fn(batch, self.generator)
+            total.backward()
+            with trace.span("train/optimizer"):
+                self.optimizer.step(self.step)
+            self.step += 1
         return {"total": total.detach(), **{k: v.detach() for k, v in loss_dict.items()}}, metrics
 
     def eval_loss(self) -> Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:

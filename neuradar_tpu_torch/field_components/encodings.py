@@ -19,6 +19,13 @@ sum rounded once (as XLA reduces them), and the output returns to the
 positions' dtype. ``cast_hash_tables`` casts every table of a module tree
 once (the hoisted cast); an encoder handed its cast table gathers from it,
 and its own cast is then a no-op.
+
+With gradients on and a table that needs one, each corner's ``table[idx]`` goes through
+``_TableGather``, whose backward (the tables' gradient scatter) runs inside the span
+``hash_encode/scatter``, timed on the card. It runs what autograd's own ``IndexBackward0`` runs:
+a zero table, then the unchecked ``_index_put_impl_`` with ``accumulate``, so the kernels and the
+gradients are the same. (``index_put_`` would check the indices' range with two host syncs.) The
+sum of the corners' gradient tables, which autograd adds up afterwards, stays outside the span.
 """
 
 from __future__ import annotations
@@ -29,10 +36,35 @@ from typing import Dict, Optional, Sequence
 import numpy as np
 import torch
 from torch import nn
-from torch.profiler import record_function
+
+from neuradar_tpu_torch.utils import trace
 
 # Instant-NGP / tcnn primes; the fourth hashes the actor index of the 4-D grid
 _HASH_PRIMES = (1, 2654435761, 805459861, 3674653429)
+
+
+class _TableGather(torch.autograd.Function):
+    """``table[idx]`` with its backward inside the span ``hash_encode/scatter``."""
+
+    @staticmethod
+    def forward(ctx, table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+        ctx.save_for_backward(idx)
+        ctx.table_shape = table.shape
+        return table[idx]
+
+    @staticmethod
+    def backward(ctx, grad: torch.Tensor):
+        (idx,) = ctx.saved_tensors
+        with trace.span("hash_encode/scatter", device=grad.is_cuda):
+            grad_table = grad.new_zeros(ctx.table_shape)
+            torch.ops.aten._index_put_impl_(grad_table, (idx,), grad, True, True)
+        return grad_table, None
+
+
+def _gather(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    if torch.is_grad_enabled() and table.requires_grad:
+        return _TableGather.apply(table, idx)
+    return table[idx]
 
 
 def hash_encode(positions: torch.Tensor, table_flat: torch.Tensor, scalings: Sequence[float], table_size: int,
@@ -40,7 +72,8 @@ def hash_encode(positions: torch.Tensor, table_flat: torch.Tensor, scalings: Seq
     """Multiresolution hash encoding: positions [N, d] in [0, 1] -> [N, L * F]."""
     N, d = positions.shape
     L, F = num_levels, features_per_level
-    scal = torch.tensor(scalings, dtype=positions.dtype, device=positions.device)
+    with trace.host_sync("hash_scalings"):
+        scal = torch.tensor(scalings, dtype=positions.dtype, device=positions.device)
     scaled = positions[:, None, :] * scal[:, None]  # [N, L, d]
     floored = torch.floor(scaled)
     offset = scaled - floored
@@ -58,7 +91,7 @@ def hash_encode(positions: torch.Tensor, table_flat: torch.Tensor, scalings: Seq
         for i, bit in enumerate(bits):
             wi = offset[..., i] if bit else 1 - offset[..., i]
             w = wi if w is None else w * wi
-        term = (table[idx] * w[..., None]).float()  # [N, L, F]
+        term = (_gather(table, idx) * w[..., None]).float()  # [N, L, F]
         out = term if out is None else out + term
     return out.to(table_flat.dtype).reshape(N, L * F)
 
@@ -112,7 +145,7 @@ class HashEncoding(nn.Module):
         if self.compute_dtype is not None:
             table = table.to(self.compute_dtype)
             positions = positions.to(self.compute_dtype)
-        with record_function("hash_encode"):
+        with trace.span("hash_encode"):
             out = hash_encode(positions.reshape(-1, self.n_input_dims), table, self.scalings,
                               self.table_size, self.num_levels, self.features_per_level)
         return out.reshape(*batch_shape, self.get_out_dim()).to(pos_dtype)

@@ -25,6 +25,7 @@ from neuradar_tpu_torch.model_components.dynamic_actors import (
     assign_samples_to_actors,
     gather_selected_w2b_components,
 )
+from neuradar_tpu_torch.utils import trace
 from neuradar_tpu_torch.utils.math import GaussiansStd
 
 EPS = 1.0e-7
@@ -62,7 +63,8 @@ def _rescale_grid_features(grid_feats: torch.Tensor, std: torch.Tensor, scalings
                            num_levels: int, features_per_level: int) -> torch.Tensor:
     """grid_feats [..., L*F] * 1 / max(scaling_l * 2 * std, 1) per level."""
     feats = grid_feats.reshape(*grid_feats.shape[:-1], num_levels, features_per_level)
-    scal = torch.tensor(scalings, dtype=std.dtype, device=std.device)
+    with trace.host_sync("feature_scalings"):
+        scal = torch.tensor(scalings, dtype=std.dtype, device=std.device)
     weights = 1.0 / torch.clamp(scal * 2 * std, min=1.0)  # [..., L]
     return (feats * weights[..., None]).reshape(*grid_feats.shape[:-1], num_levels * features_per_level)
 

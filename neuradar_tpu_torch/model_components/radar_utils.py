@@ -17,11 +17,12 @@ assigned a distinct component (a multi-Bernoulli component or a set query) by on
 
 from __future__ import annotations
 
-import time
 from typing import Optional, Tuple
 
 import numpy as np
 import torch
+
+from neuradar_tpu_torch.utils import trace
 
 EPS = 1e-6
 MIN_VAR = 1e-3
@@ -64,7 +65,8 @@ def auction_assignment(cost: torch.Tensor, row_mask: torch.Tensor, eps: float = 
     N, P, O = cost.shape
     device = cost.device
     benefit = -cost
-    neg_inf = torch.tensor(float("-inf"), dtype=cost.dtype, device=device)
+    with trace.host_sync("auction"):
+        neg_inf = torch.tensor(float("-inf"), dtype=cost.dtype, device=device)
     price = torch.zeros((N, O), dtype=cost.dtype, device=device)
     owner = torch.full((N, O), -1, dtype=torch.long, device=device)
     assigned = torch.full((N, P + 1), -1, dtype=torch.long, device=device)  # column P absorbs dropped writes
@@ -81,7 +83,8 @@ def auction_assignment(cost: torch.Tensor, row_mask: torch.Tensor, eps: float = 
         won = best_bid > neg_inf
         # evict the previous owners of won columns, then grant them to the winners
         evict = torch.where(won & (owner >= 0), owner, torch.full_like(owner, P))
-        assigned[scans.expand(N, O), evict] = -1
+        with trace.host_sync("auction"):  # the value -1 is copied to the device
+            assigned[scans.expand(N, O), evict] = -1
         winner = torch.where(won, best_person, torch.full_like(best_person, P))
         assigned[scans.expand(N, O), winner] = cols.expand(N, O)
         owner = torch.where(won, best_person, owner)
@@ -107,23 +110,18 @@ def _hungarian_host(cost: np.ndarray, row_mask: np.ndarray) -> np.ndarray:
 
 def hungarian_assignment(cost: torch.Tensor, row_mask: torch.Tensor) -> torch.Tensor:
     """scipy's exact Hungarian per scan: cost [N, P, O], row_mask [N, P] -> assigned [N, P] long
-    on the cost's device. One copy to the host (a sync on the card) and one back per call; the
-    call counts itself, its seconds waiting for the copy (``sync_seconds``) and its seconds in
-    scipy (``solve_seconds``)."""
-    t0 = time.perf_counter()
-    cost_np = cost.detach().float().cpu().numpy()
-    mask_np = row_mask.cpu().numpy()
-    t1 = time.perf_counter()
-    out = _hungarian_host(cost_np, mask_np)
-    hungarian_assignment.calls += 1
-    hungarian_assignment.sync_seconds += t1 - t0
-    hungarian_assignment.solve_seconds += time.perf_counter() - t1
-    return torch.from_numpy(out).to(cost.device)
-
-
-hungarian_assignment.calls = 0
-hungarian_assignment.sync_seconds = 0.0
-hungarian_assignment.solve_seconds = 0.0
+    on the cost's device. The copies to the host and back (each a sync on the card) are the spans
+    ``host_sync/hungarian``, scipy's solve the span ``hungarian/solve``; each call counts
+    ``hungarian_calls`` (``utils/trace.py``)."""
+    with trace.host_sync("hungarian"):
+        cost_np = cost.detach().float().cpu().numpy()
+    with trace.host_sync("hungarian"):
+        mask_np = row_mask.cpu().numpy()
+    with trace.span("hungarian/solve"):
+        out = _hungarian_host(cost_np, mask_np)
+    trace.count("hungarian_calls")
+    with trace.host_sync("hungarian"):
+        return torch.from_numpy(out).to(cost.device)
 
 
 def solve_assignment(cost: torch.Tensor, row_mask: torch.Tensor, method: str = "auction") -> torch.Tensor:

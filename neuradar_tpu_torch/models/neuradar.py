@@ -41,7 +41,6 @@ from typing import Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
-from torch.profiler import record_function
 from torch.utils.checkpoint import checkpoint
 
 from neuradar_tpu_torch.cameras.camera_optimizers import CameraOptimizer, CameraOptimizerConfig
@@ -76,6 +75,7 @@ from neuradar_tpu_torch.model_components.ray_samplers import draw_jitter, power_
 from neuradar_tpu_torch.model_components.renderers import render_depth_simple
 from neuradar_tpu_torch.model_components.vgg import VGGPerceptualLossPix2Pix
 from neuradar_tpu_torch.ops.volumetric import composite_sky
+from neuradar_tpu_torch.utils import trace
 
 EPS = 1e-7
 
@@ -275,7 +275,7 @@ class NeuRadarModel(nn.Module):
         if train and generator is None:
             raise ValueError("training draws its randomness from a generator")
         if train and self.config.camera_optimizer.mode != "off":
-            with record_function("camera_optimizer"):
+            with trace.span("camera_optimizer"):
                 ray_bundle = self.camera_optimizer.apply_to_raybundle(ray_bundle)
         outputs = self.get_nff_outputs(ray_bundle, layout, train, generator, tables, actor_edits)
         features = outputs.pop("features")
@@ -284,7 +284,7 @@ class NeuRadarModel(nn.Module):
         if cam_feats is not None:
             ph, pw = layout.patch_size
             self.rgb_decoder.train(train)
-            with record_function("rgb_decoder"):
+            with trace.span("rgb_decoder"):
                 outputs["rgb"] = self.rgb_decoder(cam_feats.reshape(-1, ph, pw, cam_feats.shape[-1]))
 
         lidar_feats = layout.lidar(features)
@@ -299,7 +299,7 @@ class NeuRadarModel(nn.Module):
             depth = layout.radar(outputs["depth"]).reshape(ns, nr, 1)
             spher = layout.radar(ray_bundle.metadata["directions_spher"]).reshape(ns, nr, 2)
             geometry = spherical_to_cartesian(depth, spher[..., 1:2], spher[..., 0:1])
-            with record_function("radar_decoder"):
+            with trace.span("radar_decoder"):
                 decoded = self._decode_radar(radar_feats.reshape(ns, nr, radar_feats.shape[-1]), geometry,
                                              generator if train else None)
             outputs["radar_output"], outputs["radar_angles"] = decoded[:2]
@@ -408,7 +408,7 @@ class NeuRadarModel(nn.Module):
         cfg = self.config
         # round i is weighted by proposal field i
         density_fns = [(lambda rs, f=f: f(rs, candidates, tables)) for f in self.proposal_fields]
-        with record_function("proposal_sampling"):
+        with trace.span("proposal_sampling"):
             ray_samples, weights_list, samples_list = proposal_network_sampler(
                 ray_bundle,
                 density_fns,
@@ -420,10 +420,10 @@ class NeuRadarModel(nn.Module):
             )
         ray_samples = _apply_sky_sample(ray_samples, cfg.sampling.sky_distance)
 
-        with record_function("field"):
+        with trace.span("field"):
             field_out = self.field(ray_samples, candidates, tables)
         # K1: weights, sky redistribution and feature render in one pass (and its backward)
-        with record_function("composite_sky"):
+        with trace.span("composite_sky"):
             weights_sky, features, accumulation = composite_sky(field_out["alpha"][..., 0], field_out["feature"])
         features = torch.cat([features, self._get_appearance_embedding(ray_bundle, features)], dim=-1)
 
@@ -467,7 +467,7 @@ class NeuRadarModel(nn.Module):
         """Forward and the loss terms of the JAX package's loss_and_metrics. Returns (total,
         loss_dict, metrics, outputs); the total is the sum of loss_dict in its insertion order."""
         outputs = self.get_outputs(ray_bundle, layout, train, generator, tables)
-        with record_function("losses"):
+        with trace.span("losses"):
             return self._losses(outputs, ray_bundle, batch, layout, train)
 
     def _losses(self, outputs, ray_bundle, batch, layout, train):
@@ -641,6 +641,8 @@ def _masked_median(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     vals = torch.sort(torch.where(mask, x, torch.full_like(x, float("inf")))).values
     n = torch.sum(mask)
     last = x.shape[0] - 1
-    lo = vals[torch.clamp((n - 1) // 2, 0, last)]
-    hi = vals[torch.clamp(n // 2, 0, last)]
+    with trace.host_sync("masked_median"):  # a 0-d index tensor is read on the host
+        lo = vals[torch.clamp((n - 1) // 2, 0, last)]
+    with trace.host_sync("masked_median"):
+        hi = vals[torch.clamp(n // 2, 0, last)]
     return torch.where(n > 0, (lo + hi) / 2, torch.zeros_like(lo))

@@ -17,6 +17,7 @@ from __future__ import annotations
 import torch
 
 from neuradar_tpu_torch.ops import build
+from neuradar_tpu_torch.utils import trace
 
 _flags = {}  # device -> int32 [1] flag word that the kernel sets on an index out of range
 
@@ -46,7 +47,8 @@ def check_indices(device) -> None:
     """Raise ``IndexError`` if a gather on ``device`` met an index out of range since the last
     check, and clear the flag. Synchronises the host with the card."""
     flag = _flag(torch.device(device))
-    bad = bool(flag.item())
+    with trace.host_sync("check_indices"):
+        bad = bool(flag.item())
     flag.zero_()
     if bad:
         raise IndexError(f"row_gather: an index was out of range on {device} since the last check")

@@ -46,6 +46,7 @@ from neuradar_tpu_torch.model_components.gospa import calculate_gospa
 from neuradar_tpu_torch.model_components.vgg import has_pretrained_weights
 from neuradar_tpu_torch.models.neuradar import NeuRadarModel, NeuRadarModelConfig, SceneMeta, SegmentLayout
 from neuradar_tpu_torch.utils.colormaps import apply_depth_colormap, apply_float_colormap
+from neuradar_tpu_torch.utils import trace
 from neuradar_tpu_torch.utils.params import init_params
 
 
@@ -118,10 +119,11 @@ class ADNeuRadarPipeline:
         """Full-image render: one ray per u x u pixel block, then the upsampling CNN -> rgb
         [H, W, 3], depth and accumulation [H/u, W/u]. ``actor_edits`` moves or removes actors;
         ``origin_shift`` [3] is added to every ray origin (the world offset of the shifted-view FID
-        evals)."""
+        evals). The span ``request/camera`` covers it."""
         u = self.config.model.rgb_upsample_factor
         H, W = self.outputs.image_size
-        return self.render_grid(self.tables.cameras, cam_idx, (H // u, W // u), actor_edits, origin_shift)
+        with trace.span("request/camera", unit=True):
+            return self.render_grid(self.tables.cameras, cam_idx, (H // u, W // u), actor_edits, origin_shift)
 
     def render_grid(self, cameras: Cameras, cam_idx: int, hw: Tuple[int, int],
                      actor_edits: Optional[ActorEdits] = None,
@@ -156,7 +158,8 @@ class ADNeuRadarPipeline:
         features = torch.cat([o["features"] for o in outs])[:n_rays]
         depth = torch.cat([o["depth"] for o in outs])[:n_rays]
         acc = torch.cat([o["accumulation"] for o in outs])[:n_rays]
-        rgb = self.model.decode_camera_features(features, (h, w))[0]
+        with trace.span("rgb_decoder"):
+            rgb = self.model.decode_camera_features(features, (h, w))[0]
         return {"rgb": rgb, "depth": depth.reshape(h, w), "accumulation": acc.reshape(h, w)}
 
     def viewer_intrinsics(self, hw: Tuple[int, int]) -> Tuple[float, float, float, float]:
@@ -176,10 +179,13 @@ class ADNeuRadarPipeline:
         fx = self.viewer_intrinsics((H, W))[0] if camera_type == 1 else W / 2.0
 
         def one(x, dtype=torch.float32):
-            return torch.tensor([[x]], dtype=dtype, device=self.device)
+            with trace.host_sync("pose_camera"):
+                return torch.tensor([[x]], dtype=dtype, device=self.device)
 
+        with trace.host_sync("pose_camera"):
+            c2w = torch.as_tensor(np.asarray(c2w, np.float32)[:3, :4], device=self.device)[None]
         cameras = Cameras(
-            camera_to_worlds=torch.as_tensor(np.asarray(c2w, np.float32)[:3, :4], device=self.device)[None],
+            camera_to_worlds=c2w,
             fx=one(fx), fy=one(fx), cx=one(W / 2), cy=one(H / 2),
             width=one(W, torch.int32), height=one(H, torch.int32), camera_type=one(camera_type, torch.int32),
             times=one(time_s), metadata={"sensor_idxs": one(0, torch.int32)},
@@ -194,19 +200,25 @@ class ADNeuRadarPipeline:
         factor u; the camera of ``pose_camera``), the actors at the scene time ``time_s`` and edited
         by ``actor_edits``; a host uint8 image. ``output``: "rgb" (the CNN's, [H, W, 3]), "depth"
         (colormapped and faded by the accumulation) or "accumulation" (colormapped), both
-        [H/u, W/u, 3]."""
-        cameras, grid = self.pose_camera(c2w, hw, time_s, camera_type)
-        rend = self.render_grid(cameras, 0, grid, actor_edits)
-        if output == "rgb":
-            return (rend["rgb"].clamp(0, 1) * 255).to(torch.uint8).cpu().numpy()
-        acc = rend["accumulation"].double().cpu().numpy()[..., None]
-        if output == "depth":
-            img = apply_depth_colormap(rend["depth"].cpu().numpy()[..., None], accumulation=acc)
-        elif output == "accumulation":
-            img = apply_float_colormap(np.clip(acc, 0, 1))
-        else:
-            raise ValueError(f"unknown render output {output!r}")
-        return (np.clip(img, 0, 1) * 255).astype(np.uint8)
+        [H/u, W/u, 3]. The span ``request/camera`` covers it."""
+        with trace.span("request/camera", unit=True):
+            cameras, grid = self.pose_camera(c2w, hw, time_s, camera_type)
+            rend = self.render_grid(cameras, 0, grid, actor_edits)
+            if output == "rgb":
+                image = (rend["rgb"].clamp(0, 1) * 255).to(torch.uint8)
+                with trace.host_sync("render_pose"):
+                    return image.cpu().numpy()
+            with trace.host_sync("render_pose"):
+                acc = rend["accumulation"].double().cpu().numpy()[..., None]
+            if output == "depth":
+                with trace.host_sync("render_pose"):
+                    depth = rend["depth"].cpu().numpy()[..., None]
+                img = apply_depth_colormap(depth, accumulation=acc)
+            elif output == "accumulation":
+                img = apply_float_colormap(np.clip(acc, 0, 1))
+            else:
+                raise ValueError(f"unknown render output {output!r}")
+            return (np.clip(img, 0, 1) * 255).astype(np.uint8)
 
     @torch.inference_mode()
     def render_lidar(self, scan_idx: int, max_points: int = 16384,
@@ -242,15 +254,17 @@ class ADNeuRadarPipeline:
                      actor_edits: Optional[ActorEdits] = None) -> Dict[str, torch.Tensor]:
         """Multi-Bernoulli radar output: [n_mb, 7] for one scan index, or [n_scans, n_mb, 7] for a
         sequence rendered as one batch; n_mb is the scan's rays, or the set decoder's queries. The
-        actors are edited by ``actor_edits``."""
-        single = isinstance(scan_idx, (int, np.integer))
-        ids = torch.as_tensor([scan_idx] if single else list(scan_idx), dtype=torch.long, device=self.device)
-        radars = self.tables.radars
-        layout = SegmentLayout(num_radar_scans=len(ids), rays_per_scan=radars.rays_per_scan)
-        outputs = self.model.get_outputs(merge_modality_bundles(None, None, radars.generate_rays(ids)), layout,
-                                         tables=self.model.cast_tables(), actor_edits=actor_edits)
-        radar_output = outputs["radar_output"]
-        return {"radar_output": radar_output[0] if single else radar_output}
+        actors are edited by ``actor_edits``. The span ``request/radar`` covers it."""
+        with trace.span("request/radar", unit=True):
+            single = isinstance(scan_idx, (int, np.integer))
+            with trace.host_sync("scan_ids"):
+                ids = torch.as_tensor([scan_idx] if single else list(scan_idx), dtype=torch.long, device=self.device)
+            radars = self.tables.radars
+            layout = SegmentLayout(num_radar_scans=len(ids), rays_per_scan=radars.rays_per_scan)
+            outputs = self.model.get_outputs(merge_modality_bundles(None, None, radars.generate_rays(ids)), layout,
+                                             tables=self.model.cast_tables(), actor_edits=actor_edits)
+            radar_output = outputs["radar_output"]
+            return {"radar_output": radar_output[0] if single else radar_output}
 
     def radar_points_world(self, time_s: float = 0.0, threshold: float = 0.5,
                            actor_edits: Optional[ActorEdits] = None) -> np.ndarray:

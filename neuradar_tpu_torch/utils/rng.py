@@ -14,6 +14,8 @@ from typing import Sequence
 
 import torch
 
+from neuradar_tpu_torch.utils import trace
+
 
 def uniform(generator: torch.Generator, shape: Sequence[int], device) -> torch.Tensor:
     """U[0, 1) float32 of ``shape`` on ``device``."""
@@ -22,4 +24,6 @@ def uniform(generator: torch.Generator, shape: Sequence[int], device) -> torch.T
 
 def seed32(generator: torch.Generator) -> int:
     """A seed in [0, 2^31 - 1) for a counter-based hash (one host sync on a device generator)."""
-    return int(torch.randint(0, 2**31 - 1, (1,), generator=generator, device=generator.device).item())
+    draw = torch.randint(0, 2**31 - 1, (1,), generator=generator, device=generator.device)
+    with trace.host_sync("seed32"):
+        return int(draw.item())

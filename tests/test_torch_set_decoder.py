@@ -38,6 +38,7 @@ from neuradar_tpu_torch.ops import attention as t_attention
 from neuradar_tpu_torch.pipelines import ad_neuradar_pipeline as t_pipeline
 from neuradar_tpu_torch.scripts import validate_learning
 from neuradar_tpu_torch.utils import rng as t_rng
+from neuradar_tpu_torch.utils import trace
 from neuradar_tpu_torch.utils.params import init_params, load_jax_params
 
 # the tiny scene, batch and model of tests/test_torch_slice.py and tests/test_torch_train.py
@@ -282,9 +283,9 @@ def test_hungarian_assignment_matches_jax(J, P, O):
     mask[3] = True
     want = np.asarray(J.jax.jit(lambda c, m: J.ru.solve_assignment(c, m, "hungarian"))(cost, mask))
     np.testing.assert_array_equal(want, J.ru._hungarian_host(cost, mask))
-    calls = t_ru.hungarian_assignment.calls
-    got = t_ru.solve_assignment(torch.from_numpy(cost), torch.from_numpy(mask), "hungarian")
-    assert t_ru.hungarian_assignment.calls == calls + 1
+    with trace.recording():
+        got = t_ru.solve_assignment(torch.from_numpy(cost), torch.from_numpy(mask), "hungarian")
+    assert trace.snapshot().total("hungarian_calls") == 1
     assert got.dtype == torch.long
     np.testing.assert_array_equal(got.numpy(), want)
     assert (got.numpy()[~mask] == -1).all()
@@ -601,10 +602,10 @@ def test_validate_learning_set_decoder_hungarian(tmp_path):
     scale on the CPU: it trains the set model with the multi-Bernoulli loss and the host's Hungarian,
     and the report and the curves record both flags (4 steps are too few for its PASS to mean
     anything; float32 because bf16 is slow on the CPU)."""
-    calls = t_ru.hungarian_assignment.calls
-    rc = validate_learning.main(["--scale", "tiny", "--iters", "4", "--eval-every", "2", "--device", "cpu",
-                                 "--no-bf16", "--set-decoder", "--radar-assignment", "hungarian",
-                                 "--output-dir", str(tmp_path)])
+    with trace.recording():
+        rc = validate_learning.main(["--scale", "tiny", "--iters", "4", "--eval-every", "2", "--device", "cpu",
+                                     "--no-bf16", "--set-decoder", "--radar-assignment", "hungarian",
+                                     "--output-dir", str(tmp_path)])
     assert rc in (0, 1)
     (report_path,) = tmp_path.glob("*/neuradar/learning_check.json")
     report = json.loads(report_path.read_text())
@@ -614,7 +615,7 @@ def test_validate_learning_set_decoder_hungarian(tmp_path):
     assert all(np.isfinite(v) for _, v in curve["curves"]["radar_loss"])
     assert curve["dtype"] == "float32"
     # 4 train steps with the main and the aux loss, and the eval batch at step 2 with the main loss
-    assert t_ru.hungarian_assignment.calls - calls == 4 * 2 + 1
+    assert trace.snapshot().total("hungarian_calls") == 4 * 2 + 1
 
 
 def test_set_config_reaches_the_model_through_the_cli():
