@@ -49,7 +49,9 @@ Phases, one line each before the final JSON line:
      render_radar_set and eval_radar_set (K1 and K2 at bf16 forward on one
      scan, and on the eval radar metrics' batch of 3 scans); and the render
      commands' path, render_cli (K1 forward at a render chunk, the float32 K2
-     forward on one scan);
+     forward on one scan); K4's backward, the tables' gradient scatter
+     (hash_scatter, csrc/hash_scatter.cu), has its rows from the presets'
+     train steps (phase 6c);
   4. render: the neuradar-synthetic model at full width with seeded random
      weights renders 2 camera frames at 720 x 1296, one 16,384-ray lidar scan
      and 4 radar scans (decoded in the model's 4 groups of 1 scan, the shape of
@@ -90,7 +92,12 @@ Phases, one line each before the final JSON line:
      neuradar then takes an eval loss, renders an eval frame (1282 x 472 rays
      at the x3 upsample) and a radar scan; step seconds, rays/s, peak memory,
      the ray generation's device and call ms for the eval frame and for a
-     sampled batch's camera rays, and the card's name and power limit; the
+     sampled batch's camera rays, and the card's name and power limit; after
+     the timed steps one more step gives K4's backward rows on that step's
+     own contributions, one a grid: the share that are exact zeros (the
+     kernel skips them), the kernel against the float64 sum of the same
+     contributions, its time beside the plain path's (torch's accumulating
+     index put) and the library call's (index_add_), its launches an encode; the
      launches are counted apart for the train steps with the eval loss
      (train_<preset>), neuradar's eval frame (render_neuradar) and its radar
      scan (render_radar_neuradar); K1 must launch on both presets, K2 at
@@ -198,6 +205,7 @@ from neuradar_tpu_torch.model_components import radar_utils
 from neuradar_tpu_torch.model_components.dynamic_actors import ActorEdits
 from neuradar_tpu_torch.model_components.vgg import has_pretrained_weights
 from neuradar_tpu_torch.models.neuradar import radar_decode_groups
+from neuradar_tpu_torch.field_components import encodings
 from neuradar_tpu_torch.ops import build, gather
 from neuradar_tpu_torch.ops.attention import (
     attention_bwd_reference,
@@ -216,6 +224,7 @@ from neuradar_tpu_torch.ops.volumetric import (
     composite_sky_reference,
     fused_composite,
 )
+from neuradar_tpu_torch.ops.hash_scatter import float64_sum, hash_scatter, hash_scatter_reference, levels_per_launch
 from neuradar_tpu_torch.pipelines.ad_neuradar_pipeline import ADNeuRadarPipeline, ADNeuRadarPipelineConfig
 from neuradar_tpu_torch.scripts import closed_loop
 from neuradar_tpu_torch.scripts import eval as eval_script
@@ -270,11 +279,13 @@ K2_BF16_DESIGN = ("bf16 wgmma on TMA tiles, 2 consumer warpgroups a block (the b
                   "split in two bf16 passes")
 K2_BF16_FWD_PASSES = 3
 K2_BF16_BWD_PASSES = 10
-# the kernels of the render and train paths; K3 (fused_composite) and P1 (row_gather) are on no path
-PATH_KERNELS = (composite_sky_fwd, composite_sky_bwd, self_attention_fwd, self_attention_bwd)
+# the kernels of the render and train paths (a render runs K1 and K2 forward alone; the tables'
+# gradient scatter, K4's backward, runs in training); K3 (fused_composite) and P1 (row_gather) are on no path
+PATH_KERNELS = (composite_sky_fwd, composite_sky_bwd, self_attention_fwd, self_attention_bwd, hash_scatter)
 # the kernels of the bf16 train path: K1 takes float32 there too, K2 bf16
-BF16_PATH_KERNELS = (composite_sky_fwd, composite_sky_bwd, self_attention_bf16_fwd, self_attention_bf16_bwd)
-COUNTED_KERNELS = PATH_KERNELS + BF16_PATH_KERNELS[2:]
+BF16_PATH_KERNELS = (composite_sky_fwd, composite_sky_bwd, self_attention_bf16_fwd, self_attention_bf16_bwd,
+                     hash_scatter)
+COUNTED_KERNELS = PATH_KERNELS + BF16_PATH_KERNELS[2:4]
 # the bf16 train path: the JAX package's benchmark program, 8 chunks of 14,230 rays
 BF16_CHUNKS = 8
 # The full-width train step runs the per-ray core unchunked, as the preset does: it fits (51 GB
@@ -884,6 +895,62 @@ def _ray_generation(cameras, ids: torch.Tensor, coords: torch.Tensor) -> dict:
     return {"rays": int(coords.shape[0]), "device_ms": kernels_ms(gen), "call_ms": call_ms(gen, reps=5)}
 
 
+def _index_add_scatter(grads, idxs, table_shape) -> torch.Tensor:
+    """The library formulation of the scatter: every corner's rows added at once into a float32 table
+    by torch's index_add_ (atomics, no sort), then one cast to the gradients' dtype."""
+    acc = torch.zeros(table_shape, dtype=torch.float32, device=grads[0].device)
+    acc.index_add_(0, torch.cat([i.reshape(-1) for i in idxs]),
+                   torch.cat([g.reshape(-1, table_shape[1]) for g in grads]).float())
+    return acc.to(grads[0].dtype)
+
+
+def _k4_bwd_rows(trainer: Trainer, name: str) -> list:
+    """K4's backward on a train step's own contributions: one more step, after the timed ones, with the
+    tables' gradient scatter wrapped. One row a grid (named by its table's shape and corners): the share
+    of the step's contributions (gradient rows of F values) that are exact zeros, +0 or -0, which the
+    kernel skips; and, on the grid's first encode, the kernel held to the float64 sum (``float64_sum``),
+    its time against its bytes bound, the plain path's (a zero table a corner, torch's accumulating index
+    put, the corner tables summed), the library call's (``_index_add_scatter``) and its launches an
+    encode."""
+    src = {"route": "cuda", "source": "neuradar_tpu_torch/csrc/hash_scatter.cu",
+           "replaces": "none (XLA in the JAX package: neuradar_tpu/field_components/encodings.py:192-248)"}
+    rows, tallies = {}, {}
+
+    def measured(grads, idxs, table_shape):
+        C, (N, L), (LT, F) = len(grads), idxs[0].shape, table_shape
+        T, dtype = LT // L, grads[0].dtype
+        key = f"{L}x{T}x{F}, {C} corners"
+        if key not in rows:
+            launches = hash_scatter.launches  # the checks' and timings' launches are not the path's
+            exact, bound = float64_sum(grads, idxs, table_shape)
+            err = (hash_scatter(grads, idxs, table_shape).double() - exact).abs()
+            _expect(bool((err <= bound).all()), f"K4 bwd on a {name} step's contributions, {key}: off the float64 sum")
+            e = grads[0].element_size()
+            rows[key] = {"name": "hash_scatter", **src, "path": f"train_{name}", "grid": key,
+                         "shape": [C, N, L, T, F], "dtype": str(dtype).removeprefix("torch."),
+                         "max_abs_err": float(err.max()),
+                         "launches_per_encode": math.ceil(L / levels_per_launch(T, F, L, dtype)),
+                         **_times(lambda: hash_scatter(grads, idxs, table_shape),
+                                  lambda: hash_scatter_reference(grads, idxs, table_shape),
+                                  lambda: _index_add_scatter(grads, idxs, table_shape)),
+                         # each contribution's gradient row and int64 index read once, the gradient written once
+                         **_bound(C * N * L * (F * e + 8) + LT * F * e, C * N * L * F)}
+            hash_scatter.launches = launches
+            del exact, bound, err
+        tally = tallies.setdefault(key, [0, 0])
+        tally[0] += sum((g == 0).all(dim=-1).sum() for g in grads)  # a tensor on the card: no sync in the step
+        tally[1] += C * N * L
+        return hash_scatter(grads, idxs, table_shape)
+
+    encodings.hash_scatter = measured
+    try:
+        trainer.train_step()
+    finally:
+        encodings.hash_scatter = hash_scatter
+    for key, (zeros, n) in tallies.items():
+        rows[key].update(zero_share=float(zeros) / n, step_contributions=n)
+    return list(rows.values())
+
 def _zero_counts() -> None:
     for k in COUNTED_KERNELS:
         k.launches = 0
@@ -935,7 +1002,9 @@ def train_preset(device: torch.device, name: str, scene, fid_frames: int = 0) ->
         _expect(_finite_dict(values), f"{name} train step {step}: a loss term is not finite: {values}")
         _expect(("camera_opt_regularizer" in values) == (m.camera_optimizer.mode != "off"),
                 f"{name}: camera_opt_regularizer {sorted(values)}")
-    eval_report = {}
+    k4_bwd = _k4_bwd_rows(trainer, name)
+    phase(f"train_{name}_k4_bwd", rows=k4_bwd)
+    eval_report = {"k4_bwd": k4_bwd}
     radar = layout.num_radar_scans > 0
     if radar:
         (losses, _), eval_s = _timed(trainer.eval_loss)
@@ -1650,6 +1719,7 @@ def main() -> int:
         t0 = time.perf_counter()
         report = train_preset(device, name, scene)
         preset_launches.update(report["launches"])
+        rows.extend(report.pop("k4_bwd"))
         phase("train_presets", preset=name, seconds=time.perf_counter() - t0, gpu=smi.splitlines()[0], **report)
         got = report["launches"][f"train_{name}"]
         _expect(got["composite_sky_fwd"] > 0 and got["composite_sky_bwd"] > 0, f"{name}: K1 never launched: {got}")
@@ -1668,6 +1738,7 @@ def main() -> int:
     t0 = time.perf_counter()
     report = train_preset(device, VOD_PRESET, vod_sensor_scene_outputs(), fid_frames=VOD_FID_FRAMES)
     preset_launches.update(report["launches"])
+    rows.extend(report.pop("k4_bwd"))
     setup = report["setup"]
     phase("train_vod", preset=VOD_PRESET, seconds=time.perf_counter() - t0, gpu=smi.splitlines()[0], **report)
     _expect(setup["rays_per_step"] == VOD_STEP_RAYS and report["render_radar"]["shape"] == [VOD_SCAN_RAYS, 7],

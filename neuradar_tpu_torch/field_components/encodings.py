@@ -4,8 +4,9 @@ field_components/encodings.py: ``HashEncoding`` forward and ``SHEncoding``).
 ``hash_encode`` is the plain PyTorch formulation of the JAX package's
 combined corner gather (``_gather_corner_features`` / ``_hash_encode_fwd``),
 written as a loop over the 2^d cell corners so that no [N, 2^d * L * F]
-index tensor is materialized. The JAX package runs it as XLA, not Pallas, so
-it has no kernel in this port yet.
+index tensor is materialized. The JAX package runs it as XLA, not Pallas; in
+this port its forward is plain PyTorch and its tables' gradient a kernel
+(``ops/hash_scatter.py``).
 
 The hash matches the JAX package bit for bit: there the products are uint32
 with wraparound; here they are int64, and masking with table_size - 1 keeps
@@ -20,51 +21,51 @@ positions' dtype. ``cast_hash_tables`` casts every table of a module tree
 once (the hoisted cast); an encoder handed its cast table gathers from it,
 and its own cast is then a no-op.
 
-With gradients on and a table that needs one, each corner's ``table[idx]`` goes through
-``_TableGather``, whose backward (the tables' gradient scatter) runs inside the span
-``hash_encode/scatter``, timed on the card. It runs what autograd's own ``IndexBackward0`` runs:
-a zero table, then the unchecked ``_index_put_impl_`` with ``accumulate``, so the kernels and the
-gradients are the same. (``index_put_`` would check the indices' range with two host syncs.) The
-sum of the corners' gradient tables, which autograd adds up afterwards, stays outside the span.
+With gradients on and a table that needs one, the 2^d corners' ``table[idx]`` go through one
+``_CornerGather`` an encode, whose backward (the tables' gradient scatter, K4's backward) runs inside
+the span ``hash_encode/scatter``, timed on the card: ``ops.hash_scatter`` adds every corner's
+gradient into the table's at once, with the kernel in ``csrc/hash_scatter.cu`` on CUDA tensors, and
+on CPU tensors as autograd would for separate gathers (bit for bit). The corner weights, their
+float32 sum and the positions' gradient stay with autograd. Without gradients each corner is a
+plain ``table[idx]``, its index freed before the next corner's is made.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional, Sequence
+from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 from torch import nn
 
+from neuradar_tpu_torch.ops.hash_scatter import hash_scatter
 from neuradar_tpu_torch.utils import trace
 
 # Instant-NGP / tcnn primes; the fourth hashes the actor index of the 4-D grid
 _HASH_PRIMES = (1, 2654435761, 805459861, 3674653429)
 
 
-class _TableGather(torch.autograd.Function):
-    """``table[idx]`` with its backward inside the span ``hash_encode/scatter``."""
+class _CornerGather(torch.autograd.Function):
+    """Each corner's ``table[idx]``; the backward scatters all their gradients into the table's
+    inside the span ``hash_encode/scatter``."""
 
     @staticmethod
-    def forward(ctx, table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-        ctx.save_for_backward(idx)
+    def forward(ctx, table: torch.Tensor, *idxs: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+        ctx.save_for_backward(*idxs)
         ctx.table_shape = table.shape
-        return table[idx]
+        return tuple(table[idx] for idx in idxs)
 
     @staticmethod
-    def backward(ctx, grad: torch.Tensor):
-        (idx,) = ctx.saved_tensors
-        with trace.span("hash_encode/scatter", device=grad.is_cuda):
-            grad_table = grad.new_zeros(ctx.table_shape)
-            torch.ops.aten._index_put_impl_(grad_table, (idx,), grad, True, True)
-        return grad_table, None
+    def backward(ctx, *grads: torch.Tensor):
+        with trace.span("hash_encode/scatter", device=grads[0].is_cuda):
+            grad_table = hash_scatter(grads, ctx.saved_tensors, ctx.table_shape)
+        return (grad_table, *(None for _ in grads))
 
 
-def _gather(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    if torch.is_grad_enabled() and table.requires_grad:
-        return _TableGather.apply(table, idx)
-    return table[idx]
+def _gather_corners(table: torch.Tensor, idxs: Sequence[torch.Tensor]) -> Sequence[torch.Tensor]:
+    """Every corner's ``table[idx]`` of one encode, through ``_CornerGather``."""
+    return _CornerGather.apply(table, *idxs)
 
 
 def hash_encode(positions: torch.Tensor, table_flat: torch.Tensor, scalings: Sequence[float], table_size: int,
@@ -80,18 +81,32 @@ def hash_encode(positions: torch.Tensor, table_flat: torch.Tensor, scalings: Seq
     base = floored.long()
     level_offsets = torch.arange(L, device=positions.device) * table_size
     table = table_flat.view(L * table_size, F)
-    out = None
-    for corner in range(2**d):
-        bits = [(corner >> i) & 1 for i in range(d)]
-        idx = (base[..., 0] + bits[0]) * _HASH_PRIMES[0]
+
+    def corner_index(corner: int) -> torch.Tensor:
+        idx = (base[..., 0] + (corner & 1)) * _HASH_PRIMES[0]
         for i in range(1, d):
-            idx = idx ^ ((base[..., i] + bits[i]) * _HASH_PRIMES[i])
-        idx = (idx & (table_size - 1)) + level_offsets  # [N, L]
+            idx = idx ^ ((base[..., i] + ((corner >> i) & 1)) * _HASH_PRIMES[i])
+        return (idx & (table_size - 1)) + level_offsets  # [N, L]
+
+    def corner_weight(corner: int) -> torch.Tensor:
         w = None
-        for i, bit in enumerate(bits):
-            wi = offset[..., i] if bit else 1 - offset[..., i]
+        for i in range(d):
+            wi = offset[..., i] if (corner >> i) & 1 else 1 - offset[..., i]
             w = wi if w is None else w * wi
-        term = (_gather(table, idx) * w[..., None]).float()  # [N, L, F]
+        return w
+
+    corners = range(2**d)
+    if torch.is_grad_enabled() and table.requires_grad:
+        feats = list(_gather_corners(table, [corner_index(c) for c in corners]))
+    else:
+        feats = None
+    out = None
+    for corner in corners:
+        if feats is None:
+            feat = table[corner_index(corner)]
+        else:
+            feat, feats[corner] = feats[corner], None
+        term = (feat * corner_weight(corner)[..., None]).float()  # [N, L, F]
         out = term if out is None else out + term
     return out.to(table_flat.dtype).reshape(N, L * F)
 

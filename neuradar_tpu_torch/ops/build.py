@@ -22,7 +22,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-SOURCES = ("composite_sky.cu", "attention.cu", "attention_bf16.cu", "gather.cu")
+SOURCES = ("composite_sky.cu", "attention.cu", "attention_bf16.cu", "gather.cu", "hash_scatter.cu")
 HEADERS = ("attention_common.cuh",)
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 COMPILE_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC")
@@ -31,6 +31,8 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _U = ctypes.c_uint
 _F = ctypes.c_float
+_L = ctypes.c_longlong
+_PP = ctypes.POINTER(ctypes.c_void_p)
 _SIGNATURES = {
     # alpha, feats, w_sky, features, accum, R, S, C, stream
     "composite_sky_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
@@ -49,6 +51,8 @@ _SIGNATURES = {
     "self_attention_bf16_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _U, _U, _F, _P],
     # q, k, v, out32, dout, lse, scratch, dq, dk, dv, B, S, D, scale, seed, thresh, inv_keep, stream
     "self_attention_bf16_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _U, _U, _F, _P],
+    # grads, idx (host arrays of 2^d device pointers), corners, N, L, F, T, l0, l1, bf16, acc, out, stream
+    "hash_scatter": [_PP, _PP, _I, _L, _I, _I, _L, _I, _I, _I, _P, _P, _P],
     # B, S -> the float32 scratch self_attention_bf16_bwd takes
     "self_attention_bf16_bwd_scratch": [_I, _I],
 }

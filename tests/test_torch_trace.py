@@ -1,6 +1,6 @@
 """The port's spans and counters (``neuradar_tpu_torch/utils/trace.py``) on the CPU: when they are
-recorded, how a request's and a train step's spans nest and share an id, and that routing the hash
-grids' corner gathers through the ``hash_encode/scatter`` span leaves the tables' gradients
+recorded, how a request's and a train step's spans nest and share an id, and that routing a hash
+grid encode's corner gathers through the ``hash_encode/scatter`` span leaves the tables' gradients
 bit-equal to autograd's own."""
 
 import threading
@@ -127,9 +127,9 @@ def test_request_spans_nest_and_share_an_id(pipeline):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["float32", "bf16"])
 @pytest.mark.parametrize("dims", [3, 4])
 def test_scatter_span_keeps_the_table_gradient(dims, dtype, monkeypatch):
-    """(c) The table gradient through ``_TableGather`` equals autograd's through a plain
-    ``table[idx]`` bit for bit (a small table, so corners collide and the accumulation order
-    counts), with one ``hash_encode/scatter`` span per corner gather, on the backward's thread."""
+    """(c) The table gradient through ``_CornerGather`` equals autograd's through a plain
+    ``table[idx]`` a corner bit for bit (a small table, so corners collide and the accumulation order
+    counts), with one ``hash_encode/scatter`` span per encode, on the backward's thread."""
     enc = encodings.HashEncoding(num_levels=4, min_res=4, max_res=64, log2_hashmap_size=6, features_per_level=2,
                                  n_input_dims=dims, compute_dtype=None if dtype == torch.float32 else dtype)
     gen = torch.Generator().manual_seed(dims)
@@ -147,9 +147,9 @@ def test_scatter_span_keeps_the_table_gradient(dims, dtype, monkeypatch):
         wrapped = table_grad()
     snap = trace.snapshot()
     scatters = [s for s in snap.spans if s.name == "hash_encode/scatter"]
-    assert len(scatters) == 2**dims
+    assert len(scatters) == 1
     assert all(s.device_ms is None for s in scatters)  # the event pair is the card's alone
-    monkeypatch.setattr(encodings, "_gather", lambda table, idx: table[idx])
+    monkeypatch.setattr(encodings, "_gather_corners", lambda table, idxs: [table[i] for i in idxs])
     plain = table_grad()
     assert wrapped.dtype == plain.dtype == torch.float32
     assert torch.equal(wrapped, plain)
