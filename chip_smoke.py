@@ -1,6 +1,7 @@
 """Smoke run of the PyTorch port (neuradar_tpu_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py          # every phase
+    python3 chip_smoke.py splat    # device, build, k5 and train_splat only
 
 Phases, one line each before the final JSON line:
   1. device: requires CUDA; prints the card's name and power limit (nvidia-smi)
@@ -52,6 +53,24 @@ Phases, one line each before the final JSON line:
      forward on one scan); K4's backward, the tables' gradient scatter
      (hash_scatter, csrc/hash_scatter.cu), has its rows from the presets'
      train steps (phase 6c);
+  3b. k5: splatfacto's tile rasterizer (ops/splat.py, csrc/splat_raster.cu) at
+     splatfacto-big's shapes: 1,048,576 gaussians, all alive (the lidar
+     returns of the synthetic scene in VoD's camera, repeated and jittered,
+     anisotropic scales, random rotations, colours and SH bands), one
+     1936 x 1216 image of 9,196 tiles, 512 a tile. Rows: the binning and pair
+     sort (one call, its host read included), K5 forward and backward alone
+     (the kernel's device ms, one call's ms, the bound of
+     benchmark/harness/splat_count.py's counts), the plain version's ms (one
+     call, render_plain: a dense [tiles, G] overlap test and sort and dense
+     compositing in blocks of 64 tiles), forward on the whole image and
+     backward on its top 16 tile rows (the plain backward's graph in
+     checkpointed blocks), each kernel against the plain version: colour,
+     alpha and depth's largest gap, and each feature column's relative L2 gap
+     of the gradient;
+  3c. train_splat: splatfacto-big's SplatfactoTrainer on that state, from
+     step 15,000 (its first step refines), 5 train steps of 2,354,176 pixels
+     each timed, the loss finite, every parameter group changed, K5 forward,
+     backward and binning launched once a step;
   4. render: the neuradar-synthetic model at full width with seeded random
      weights renders 2 camera frames at 720 x 1296, one 16,384-ray lidar scan
      and 4 radar scans (decoded in the model's 4 groups of 1 scan, the shape of
@@ -204,9 +223,10 @@ from neuradar_tpu_torch.engine.trainer import Trainer, TrainerConfig
 from neuradar_tpu_torch.model_components import radar_utils
 from neuradar_tpu_torch.model_components.dynamic_actors import ActorEdits
 from neuradar_tpu_torch.model_components.vgg import has_pretrained_weights
+from neuradar_tpu_torch.models import splatfacto as sf
 from neuradar_tpu_torch.models.neuradar import radar_decode_groups
 from neuradar_tpu_torch.field_components import encodings
-from neuradar_tpu_torch.ops import build, gather
+from neuradar_tpu_torch.ops import build, gather, splat
 from neuradar_tpu_torch.ops.attention import (
     attention_bwd_reference,
     attention_reference,
@@ -1646,7 +1666,147 @@ def learning() -> dict:
     return result
 
 
-def main() -> int:
+SPLAT_PRESET = "splatfacto-big"
+SPLAT_START_STEP = 15000
+SPLAT_STEPS = 5
+SPLAT_PLAIN_ROWS = 256  # the top 16 tile rows: the plain backward's comparison
+sys.path.insert(0, str(Path(__file__).resolve().parent / "benchmark"))
+from harness.splat_count import SplatLayout, raster_bwd as k5_bwd_count, raster_fwd as k5_fwd_count  # noqa: E402
+
+
+def _splat_trainer(device: torch.device):
+    """splatfacto-big as the registry builds it, on the synthetic scene in VoD's camera (1936 x 1216,
+    whole tiles), its 1,048,576 gaussians all alive: the lidar returns repeated and jittered by
+    0.3 m, log-scales around log 0.2 m (std 0.3 an axis), random rotations, opacities uniform in
+    [0.05, 0.95], normal colour logits and SH bands of std 0.1; at step 15,000."""
+    trainer = get_method(SPLAT_PRESET).setup(vod_sensor_scene_outputs(), device)
+    out = trainer.outputs
+    pts = np.concatenate([p[np.linalg.norm(p[:, :3], axis=1) < 1e3, :3] @ l2w[:3, :3].T + l2w[:3, 3]
+                          for p, l2w in zip(out.lidar_points, out.lidar_to_worlds)])
+    gen = torch.Generator(device=device).manual_seed(0)
+    G = trainer.config.model.max_gaussians
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device=device)
+
+    base = torch.as_tensor(pts, dtype=torch.float32, device=device)[torch.arange(G, device=device) % len(pts)]
+    values = {"means": base + 0.3 * randn(G, 3), "log_scales": math.log(0.2) + 0.3 * randn(G, 3),
+              "quats": randn(G, 4), "opacity_logits": torch.logit(0.05 + 0.9 * torch.rand(G, 1, generator=gen,
+                                                                                          device=device)),
+              "rgb_logits": randn(G, 3), "sh_rest": 0.1 * randn(G, 45)}
+    with torch.no_grad():
+        for k, v in trainer.model.params.items():
+            v.copy_(values[k])
+        trainer.model.alive.fill_(True)
+    trainer.step = SPLAT_START_STEP
+    return trainer
+
+
+def _splat_inputs(trainer, height: int):
+    """K5's inputs on the trainer's first image, cut to its top ``height`` rows."""
+    mc, cam = trainer.config.model, trainer.camera(0)
+    with torch.no_grad():
+        feats, radius, in_view = sf.features(trainer.model.params, trainer.model.alive, cam["w2c"], cam["fx"],
+                                             cam["fy"], cam["cx"], cam["cy"], height, trainer.W, mc.sh_degree)
+    return feats.contiguous(), radius.contiguous(), in_view
+
+
+def _column_gaps(got: torch.Tensor, want: torch.Tensor) -> list:
+    """Each column's relative L2 gap."""
+    return [float((g - w).double().norm() / w.double().norm().clamp(min=1e-30)) for g, w in zip(got.T, want.T)]
+
+
+def k5_rows(trainer) -> list:
+    """K5 against its plain version at splatfacto-big's shapes (phase 3b)."""
+    mc = trainer.config.model
+    H, W, K = trainer.H, trainer.W, mc.tile_top_k
+    th, tw = splat.tile_grid(H, W)
+    feats, radius, in_view = _splat_inputs(trainer, H)
+    lists = splat.bin_sort(feats, radius, in_view, th, tw, K)
+    gids, start, counts, (listed, overflowed) = lists
+    layout = SplatLayout(gaussians=mc.max_gaussians, height=H, width=W, top_k=K, sh_degree=mc.sh_degree)
+    shape = [th * tw, splat.TILE * splat.TILE, K]
+    base = {"path": "train_splatfacto-big", "shape": shape, "listed_pairs": listed, "tiles_overflowed": overflowed,
+            "pairs": int(len(gids)), "in_view": int(in_view.sum())}
+    rows = [{"name": "splat_bin_sort", **base, "call_ms": call_ms(lambda: splat.bin_sort(feats, radius, in_view,
+                                                                                           th, tw, K), reps=5)}]
+
+    def fwd():
+        return splat.raster_fwd(feats, gids, start, counts, K, tw, H, W)
+
+    outputs = fwd()
+    with torch.no_grad():
+        plain = splat.render_plain(feats, radius, in_view, H, W, K)
+    fwd_gap = {name: float((o - p).abs().max()) for name, o, p in zip(("color", "alpha", "depth"), outputs, plain)}
+    rows.append({"name": "splat_raster_fwd", **base, "ms": device_ms(fwd), "call_ms": call_ms(fwd),
+                 "plain_ms": call_ms(lambda: splat.render_plain(feats, radius, in_view, H, W, K), reps=1, warmup=1),
+                 "plain_timer": "one call", "max_abs_gap": fwd_gap, **_bound(*k5_fwd_count(listed, layout))})
+
+    gen = torch.Generator(device=trainer.device).manual_seed(1)
+    grads = [torch.randn(o.shape, generator=gen, device=trainer.device) for o in outputs]
+    bwd_ms = device_ms(lambda: splat.raster_bwd(feats, gids, start, counts, K, tw, H, W, outputs, grads))
+
+    # the backward against the plain version's on the top rows
+    h = SPLAT_PLAIN_ROWS
+    cf, cr, cv = _splat_inputs(trainer, h)
+    cg, cs, cc, (c_listed, _) = splat.bin_sort(cf, cr, cv, h // splat.TILE, tw, K)
+    c_out = splat.raster_fwd(cf, cg, cs, cc, K, tw, h, W)
+    c_grads = [torch.randn(o.shape, generator=gen, device=trainer.device) for o in c_out]
+    got = splat.raster_bwd(cf, cg, cs, cc, K, tw, h, W, c_out, c_grads)
+    leaf = cf.clone().requires_grad_(True)
+
+    def plain_bwd():
+        leaf.grad = None
+        color, alpha, depth, _ = splat.render_plain(leaf, cr, cv, h, W, K)
+        torch.autograd.backward((color, alpha, depth), c_grads)
+        return leaf.grad
+
+    want = plain_bwd()
+    gaps = _column_gaps(got, want)
+    plain_ms = call_ms(plain_bwd, reps=1, warmup=1)
+    rows.append({"name": "splat_raster_bwd", **base, "ms": bwd_ms, "plain_ms_top_rows": plain_ms,
+                 "plain_timer": f"one call on the top {h} rows", "top_rows_listed_pairs": c_listed,
+                 "grad_column_gaps": dict(zip(("x", "y", "ia", "ib", "ic", "opacity", "r", "g", "b", "depth"), gaps)),
+                 **_bound(*k5_bwd_count(listed, layout))})
+    return rows
+
+
+def check_k5_rows(rows: list) -> None:
+    """K5 forward within 1e-3 of the plain version (colour, alpha, depth), backward within 1e-2 a
+    feature column (relative L2): the sums run in other orders, the backward's through atomics."""
+    fwd, bwd = rows[1]["max_abs_gap"], rows[2]["grad_column_gaps"]
+    _expect(all(math.isfinite(v) and v < 1e-3 for v in fwd.values()), f"K5 forward against plain: {fwd}")
+    _expect(all(math.isfinite(g) and g < 1e-2 for g in bwd.values()), f"K5 backward against plain: {bwd}")
+
+
+def train_splat(trainer) -> dict:
+    """splatfacto-big's train step from the trainer's state (phase 3c)."""
+    before = {k: v.detach().clone() for k, v in trainer.model.params.items()}
+    counted = (splat.raster_fwd, splat.raster_bwd, splat.bin_sort)
+    for k in counted:
+        k.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    step_s, losses = [], []
+    for _ in range(SPLAT_STEPS):
+        t0 = time.perf_counter()
+        loss, metrics = trainer.train_step()
+        losses.append(float(loss["total"]))
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+    changed = {k: bool((v.detach() != before[k]).any()) for k, v in trainer.model.params.items()}
+    launches = {k.__name__: k.launches for k in counted}
+    _expect(all(changed.values()) and all(math.isfinite(v) for v in losses), f"train_splat: {changed} {losses}")
+    _expect(launches == {"raster_fwd": SPLAT_STEPS, "raster_bwd": SPLAT_STEPS, "bin_sort": 2 * SPLAT_STEPS},
+            f"train_splat: launches {launches}")
+    pixels = trainer.H * trainer.W
+    return {"step_s": step_s, "pixels_per_step": pixels, "pixels_per_s_median": pixels / float(np.median(step_s)),
+            "losses": losses, "tile_overflow_frac": float(metrics["tile_overflow_frac"]),
+            "alive": int(trainer.model.alive.sum()), "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "launches": launches, "changed": changed}
+
+
+def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else argv
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on a GPU only", file=sys.stderr)
         return 1
@@ -1666,8 +1826,30 @@ def main() -> int:
     build.load()
     phase("build", seconds=time.perf_counter() - t0, library=str(lib.name))
 
-    rows = check_kernels(device)
-    for row in rows:
+    t0 = time.perf_counter()
+    trainer = _splat_trainer(device)
+    phase("k5_setup", seconds=time.perf_counter() - t0, gaussians=trainer.config.model.max_gaussians,
+          image=[trainer.H, trainer.W])
+    splat_rows = k5_rows(trainer)
+    for row in splat_rows:
+        phase("kernel", **row)
+    t0 = time.perf_counter()
+    report = train_splat(trainer)
+    phase("train_splat", seconds=time.perf_counter() - t0, gpu=smi.splitlines()[0], **report)
+    check_k5_rows(splat_rows)
+    for row, name in zip(splat_rows, ("bin_sort", "raster_fwd", "raster_bwd")):
+        row["launches"] = report["launches"][name] // SPLAT_STEPS
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    if argv == ["splat"]:
+        print(json.dumps({"kernels": splat_rows}))
+        print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                                 "count": torch.cuda.device_count()}}))
+        return 0
+
+    rows = check_kernels(device) + splat_rows
+    for row in rows[:-len(splat_rows)]:
         phase("kernel", **row)
 
     render_kernels = (composite_sky_fwd, self_attention_fwd)
@@ -1784,7 +1966,7 @@ def main() -> int:
     path_launches = {"render": render_launches, "train": launches, **bf16_launches, **set_launches,
                      **preset_launches, "render_cli": render_cli_launches}
     for row in rows:
-        if row["path"] != "standalone":
+        if row["path"] != "standalone" and "launches" not in row:
             row["launches"] = path_launches[row["path"]][row["name"]]
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -9,7 +9,10 @@ train longer (2.5x, 7.5x) at halved rates on finer grids, each with its ``-scale
 temporal appearance, no actor flips). ``neuradar-synthetic`` is the data-free preset, float32,
 without the VGG loss. ``neuradar-vod`` is neuradar on View-of-Delft; ``neurad-nuscenes``,
 ``neurad-pandaset``, ``neurad-kittimot``, ``neurad-argoverse2`` and ``neurad-wod`` are neurad on
-those datasets' parsers. The nerfacto family and splatfacto are not here.
+those datasets' parsers. ``splatfacto`` is 3D Gaussian splatting on the synthetic scene (262,144
+gaussians, 256 a tile) with its own trainer (``engine/splatfacto_trainer.py``: the config's
+``setup(outputs, device)`` builds it), and ``splatfacto-big`` the same at 1,048,576 gaussians and
+512 a tile. The nerfacto family is not here.
 """
 
 from __future__ import annotations
@@ -27,7 +30,9 @@ from neuradar_tpu_torch.data.dataparsers.vod import VodDataParserConfig
 from neuradar_tpu_torch.data.dataparsers.wod import WodDataParserConfig
 from neuradar_tpu_torch.data.dataparsers.zod import ZodDataParserConfig
 from neuradar_tpu_torch.engine.optimizers import default_optimizer_groups
+from neuradar_tpu_torch.engine.splatfacto_trainer import SplatfactoTrainerConfig
 from neuradar_tpu_torch.engine.trainer import TrainerConfig
+from neuradar_tpu_torch.models.splatfacto import SplatfactoConfig
 from neuradar_tpu_torch.pipelines.ad_neuradar_pipeline import ADNeuRadarPipelineConfig
 
 
@@ -169,7 +174,18 @@ def _paperize(cfg: TrainerConfig, name: str) -> TrainerConfig:
     return cfg
 
 
-method_configs: Dict[str, Callable[[], TrainerConfig]] = {
+def _splatfacto() -> SplatfactoTrainerConfig:
+    return SplatfactoTrainerConfig(dataparser=SyntheticDataParserConfig())
+
+
+def _splatfacto_big() -> SplatfactoTrainerConfig:
+    cfg = _splatfacto()
+    cfg.method_name = "splatfacto-big"
+    cfg.model = SplatfactoConfig(max_gaussians=1_048_576, tile_top_k=512)
+    return cfg
+
+
+method_configs: Dict[str, Callable[[], object]] = {
     "neuradar": _neuradar,
     "neuradar-set": _neuradar_set,
     "neuradar-vod": _neuradar_vod,
@@ -187,6 +203,8 @@ method_configs: Dict[str, Callable[[], TrainerConfig]] = {
     "neurad-kittimot": _neurad_on(KittiMotDataParserConfig, "neurad-kittimot"),
     "neurad-argoverse2": _neurad_on(Argoverse2DataParserConfig, "neurad-argoverse2"),
     "neurad-wod": _neurad_on(WodDataParserConfig, "neurad-wod"),
+    "splatfacto": _splatfacto,
+    "splatfacto-big": _splatfacto_big,
 }
 method_descriptions = {
     "neuradar": "NeuRadar, the paper's preset: ZOD camera + lidar + radar, bf16 in 8 chunks (needs zod data).",
@@ -206,10 +224,14 @@ method_descriptions = {
     "neurad-kittimot": "NeuRAD on KITTI MOT: image_02 and the velodyne, oxts poses (needs data).",
     "neurad-argoverse2": "NeuRAD on Argoverse 2: the front ring camera and the lidar (needs the av2 devkit and data).",
     "neurad-wod": "NeuRAD on the Waymo Open Dataset: front camera, column rolling shutter, top lidar (needs data).",
+    "splatfacto": "3D Gaussian splatting on the synthetic scene: 262,144 gaussians, SH degree 3, 256 a tile.",
+    "splatfacto-big": "3D Gaussian splatting at 1,048,576 gaussians and 512 a tile (splatfacto-big).",
 }
 
 
-def get_method(name: str) -> TrainerConfig:
+def get_method(name: str):
+    """A fresh config of the preset ``name``: a ``TrainerConfig``, or a ``SplatfactoTrainerConfig``
+    for the splatfacto presets."""
     if name not in method_configs:
         raise KeyError(f"unknown method {name!r}; the port has {sorted(method_configs)}")
     return method_configs[name]()

@@ -98,19 +98,21 @@ def default_optimizer_groups(max_steps: int = 20001) -> Dict[str, OptimizerGroup
 
 class GroupedOptimizer:
     """One torch optimizer and one schedule per parameter group; labels without a group are
-    frozen (their parameters stop requiring gradients)."""
+    frozen (their parameters stop requiring gradients). ``label`` maps a parameter's path to its
+    group (neuradar's table by default)."""
 
-    def __init__(self, model: nn.Module, groups: Dict[str, OptimizerGroupConfig]):
+    def __init__(self, model: nn.Module, groups: Dict[str, OptimizerGroupConfig],
+                 label: Callable[[Tuple[str, ...]], str] = param_group_label):
         members: Dict[str, List[nn.Parameter]] = {}
         self.labels: Dict[str, str] = {}
         for name, p in model.named_parameters():
-            label = param_group_label(tuple(name.split(".")))
-            if label not in groups:
-                label = "frozen"
+            group = label(tuple(name.split(".")))
+            if group not in groups:
+                group = "frozen"
                 p.requires_grad_(False)
-            self.labels[name] = label
-            if label != "frozen":
-                members.setdefault(label, []).append(p)
+            self.labels[name] = group
+            if group != "frozen":
+                members.setdefault(group, []).append(p)
         self.optimizers = {g: groups[g].optimizer.build(ps) for g, ps in members.items()}
         self.schedules = {g: groups[g].schedule() for g in members}
 

@@ -22,7 +22,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-SOURCES = ("composite_sky.cu", "attention.cu", "attention_bf16.cu", "gather.cu", "hash_scatter.cu")
+SOURCES = ("composite_sky.cu", "attention.cu", "attention_bf16.cu", "gather.cu", "hash_scatter.cu",
+           "splat_raster.cu")
 HEADERS = ("attention_common.cuh",)
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 COMPILE_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC")
@@ -53,6 +54,15 @@ _SIGNATURES = {
     "self_attention_bf16_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _U, _U, _F, _P],
     # grads, idx (host arrays of 2^d device pointers), corners, N, L, F, T, l0, l1, bf16, acc, out, stream
     "hash_scatter": [_PP, _PP, _I, _L, _I, _I, _L, _I, _I, _I, _P, _P, _P],
+    # feats, radius, in_view, G, tw, th, tile_r, counts, tile_counts, stream
+    "splat_bin_count": [_P, _P, _P, _I, _I, _I, _F, _P, _P, _P],
+    # feats, radius, in_view, ends, counts, G, tw, th, tile_r, keys, gids, stream
+    "splat_bin_emit": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _P, _P, _P],
+    # feats, gids, tile_start, tile_counts, T, K, tw, out_w, out_h, color, alpha, depth, stream
+    "splat_raster_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P],
+    # feats, gids, tile_start, tile_counts, T, K, tw, out_w, out_h, color, alpha, depth, dcolor, dalpha,
+    # ddepth, dfeats, stream
+    "splat_raster_bwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P],
     # B, S -> the float32 scratch self_attention_bf16_bwd takes
     "self_attention_bf16_bwd_scratch": [_I, _I],
 }

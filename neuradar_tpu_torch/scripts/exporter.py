@@ -7,10 +7,11 @@ Commands: ``pointcloud`` (the eval lidar scans' predicted returns, world frame),
 (the eval radar scans' points, world frame), ``sdf-surface`` (the SDF's zero crossings on a grid
 as points), ``sdf-mesh`` (its marching-tetrahedra mesh), ``tsdf-mesh`` (eval depth maps fused into
 a TSDF and meshed), ``poisson-mesh`` (screened Poisson of the lidar point cloud with its normals)
-and ``cameras`` (the train and eval camera poses as JSON). ``gaussian-ply`` exports a splatfacto
-run, and splatfacto is still to port: the command refuses. The renders and the SDF queries run on
-the card unless ``--device cpu`` is given, the marching tetrahedra of the SDF and TSDF meshes on
-the same device; the TSDF fusion and the Poisson solve run in numpy on the host.
+and ``cameras`` (the train and eval camera poses as JSON). ``gaussian-ply`` writes a splatfacto
+run's gaussians (its ``gaussians.npz``) as the standard 3DGS PLY, and refuses a run without one.
+The renders and the SDF queries run on the card unless ``--device cpu`` is given, the marching
+tetrahedra of the SDF and TSDF meshes on the same device; the TSDF fusion and the Poisson solve run
+in numpy on the host.
 """
 
 from __future__ import annotations
@@ -136,9 +137,20 @@ def main(argv=None) -> int:
     args = parser.parse_args(argv)
 
     if args.command == "gaussian-ply":
-        print("exporter gaussian-ply: it exports a splatfacto run, and splatfacto is still to port to "
-              "neuradar_tpu_torch", file=sys.stderr)
-        return 2
+        from neuradar_tpu_torch.models.splatfacto import export_gaussians_ply
+
+        run_dir = args.load_config if args.load_config.is_dir() else args.load_config.parent
+        ckpt = run_dir / "gaussians.npz"
+        if not ckpt.is_file():
+            print(f"exporter gaussian-ply: {run_dir} holds no gaussians.npz; it exports a splatfacto run",
+                  file=sys.stderr)
+            return 2
+        with np.load(ckpt) as z:
+            params = {k[6:]: z[k] for k in z.files if k.startswith("param_")}
+            alive = z["state_alive"]
+        n = export_gaussians_ply(args.output_path, params, alive)
+        print(f"wrote {n} gaussians to {args.output_path}")
+        return 0
 
     from neuradar_tpu_torch.scripts.render import load_pipeline
     from neuradar_tpu_torch.scripts.render_radar import ScanSampler

@@ -8,7 +8,9 @@ A method picks a TrainerConfig preset, dotted overrides change any field
 event logs, the checkpoints and ``final_metrics.json``. It trains on the card
 (``cuda``) unless ``--device`` says otherwise. To resume, pass the run's
 ``--load_dir <run dir>/checkpoints``: training continues to
-``--max_num_iterations``.
+``--max_num_iterations``. The splatfacto presets build their own trainer
+(``SplatfactoTrainerConfig.setup``), whose run directory receives ``gaussians.npz`` in place of the
+checkpoints.
 """
 
 from __future__ import annotations
@@ -68,16 +70,22 @@ def main(argv=None) -> int:
         return 0
     parse_overrides(config, argv)
 
-    trainer = Trainer(config, device=device)
+    if method.startswith("splatfacto"):
+        trainer = config.setup(device=device)
+    else:
+        trainer = Trainer(config, device=device)
     run_dir = trainer.run_dir
     run_dir.mkdir(parents=True, exist_ok=True)
     (run_dir / "config.json").write_text(json.dumps(config_to_jsonable(config), indent=2))
     print(f"[train] method={method} device={device} -> {run_dir}", flush=True)
-    trainer.setup()
-    try:
+    if method.startswith("splatfacto"):
         metrics = trainer.train()
-    finally:
-        trainer.shutdown()
+    else:
+        trainer.setup()
+        try:
+            metrics = trainer.train()
+        finally:
+            trainer.shutdown()
     (run_dir / "final_metrics.json").write_text(json.dumps(metrics, indent=2))
     print(json.dumps({k: round(v, 5) for k, v in metrics.items() if isinstance(v, float)}, indent=2))
     return 0

@@ -37,7 +37,8 @@ from tests.test_torch_slice import RADAR_FOV, SCENE, perturb, shrink
 
 PORTED = ("neuradar", "neuradar-set", "neuradar-synthetic", "neurad", "neurad-scaleopt", "neurader", "neuradest",
           "neurader-scaleopt", "neuradest-scaleopt", "neurad-paper", "neurad-2x-paper", "neuradar-vod",
-          "neurad-nuscenes", "neurad-pandaset", "neurad-kittimot", "neurad-argoverse2", "neurad-wod")
+          "neurad-nuscenes", "neurad-pandaset", "neurad-kittimot", "neurad-argoverse2", "neurad-wod", "splatfacto",
+          "splatfacto-big")
 # the JAX package's options the port does not carry: its TPU and multi-device machinery (Pallas
 # switches, remat policies, the packed/dense hash-grid layouts, sharding, several steps a dispatch,
 # the profiler, the viewer), optax's optimizer state dtypes and clipping, and the field variants no

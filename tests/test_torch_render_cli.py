@@ -306,8 +306,8 @@ def test_exporter_commands_match_jax(run, case, tmp_path):
 
 
 def test_gaussian_ply_is_refused(run, tmp_path, capsys):
-    """gaussian-ply exports a splatfacto run, which the port cannot load yet: it exits non-zero with
-    a message naming splatfacto, and writes nothing."""
+    """gaussian-ply exports a splatfacto run's gaussians.npz; on a neuradar run, which has none, it
+    exits non-zero with a message naming splatfacto, and writes nothing."""
     assert t_exporter.main(["gaussian-ply", "--load-config", str(run.dirs["nll"]),
                             "--output-path", str(tmp_path / "g.ply"), "--device", "cpu"]) != 0
     assert "splatfacto" in capsys.readouterr().err
