@@ -2,6 +2,7 @@
 
     python3 chip_smoke.py          # every phase
     python3 chip_smoke.py splat    # device, build, k5 and train_splat only
+    python3 chip_smoke.py k4       # device, build and train_presets (with K4's rows) only
 
 Phases, one line each before the final JSON line:
   1. device: requires CUDA; prints the card's name and power limit (nvidia-smi)
@@ -50,9 +51,9 @@ Phases, one line each before the final JSON line:
      render_radar_set and eval_radar_set (K1 and K2 at bf16 forward on one
      scan, and on the eval radar metrics' batch of 3 scans); and the render
      commands' path, render_cli (K1 forward at a render chunk, the float32 K2
-     forward on one scan); K4's backward, the tables' gradient scatter
-     (hash_scatter, csrc/hash_scatter.cu), has its rows from the presets'
-     train steps (phase 6c);
+     forward on one scan); K4, the hash-grid encode (hash_encode_fwd / _bwd,
+     csrc/hash_encode.cu), has its rows from the presets' own encodes (phase
+     6c);
   3b. k5: splatfacto's tile rasterizer (ops/splat.py, csrc/splat_raster.cu) at
      splatfacto-big's shapes: 1,048,576 gaussians, all alive (the lidar
      returns of the synthetic scene in VoD's camera, repeated and jittered,
@@ -112,16 +113,22 @@ Phases, one line each before the final JSON line:
      at the x3 upsample) and a radar scan; step seconds, rays/s, peak memory,
      the ray generation's device and call ms for the eval frame and for a
      sampled batch's camera rays, and the card's name and power limit; after
-     the timed steps one more step gives K4's backward rows on that step's
-     own contributions, one a grid: the share that are exact zeros (the
-     kernel skips them), the kernel against the float64 sum of the same
-     contributions, its time beside the plain path's (torch's accumulating
-     index put) and the library call's (index_add_), its launches an encode; the
+     the timed steps and the eval loss one more step, and with radar one more eval frame and
+     radar scan, give K4's rows on their own encodes, one a grid and path
+     (each path's encodes must all take the kernel, hash_encode_plain 0):
+     forward rows (train, render, render_radar) bit-equal to the plain path,
+     and backward rows (train) with the table's gradient against the float64
+     sum of the plain path's corner gradients, the share of those that are
+     exact zeros (the kernel skips them) and the positions' gradient's gap to
+     plain autograd's; each with its time against its bytes bound (the
+     distinct 32-byte sectors each level's lookups touch),
+     the plain path's time, the library call's (index_add_ of the corner
+     gradients, backward), its launches an encode; the
      launches are counted apart for the train steps with the eval loss
      (train_<preset>), neuradar's eval frame (render_neuradar) and its radar
      scan (render_radar_neuradar); K1 must launch on both presets, K2 at
      bf16 on neuradar alone, the float32 K2 on neither; the eval frame runs
-     K1 forward alone, the radar scan K1 and K2 at bf16 forward;
+     K1 and K4 forward alone, the radar scan K1, K2 at bf16 and K4 forward;
      neurad's camera_opt group must have changed and its regularizer be
      finite. train_presets_agreement: neurad's model (float32) on a tiny scene
      in the fisheye with distortion and a rolling shutter, the camera
@@ -244,7 +251,9 @@ from neuradar_tpu_torch.ops.volumetric import (
     composite_sky_reference,
     fused_composite,
 )
-from neuradar_tpu_torch.ops.hash_scatter import float64_sum, hash_scatter, hash_scatter_reference, levels_per_launch
+from neuradar_tpu_torch.ops import hash_encode as hash_encode_op
+from neuradar_tpu_torch.ops.hash_encode import hash_encode_bwd, hash_encode_fwd, levels_per_launch
+from neuradar_tpu_torch.ops.hash_scatter import float64_sum
 from neuradar_tpu_torch.pipelines.ad_neuradar_pipeline import ADNeuRadarPipeline, ADNeuRadarPipelineConfig
 from neuradar_tpu_torch.scripts import closed_loop
 from neuradar_tpu_torch.scripts import eval as eval_script
@@ -299,12 +308,13 @@ K2_BF16_DESIGN = ("bf16 wgmma on TMA tiles, 2 consumer warpgroups a block (the b
                   "split in two bf16 passes")
 K2_BF16_FWD_PASSES = 3
 K2_BF16_BWD_PASSES = 10
-# the kernels of the render and train paths (a render runs K1 and K2 forward alone; the tables'
-# gradient scatter, K4's backward, runs in training); K3 (fused_composite) and P1 (row_gather) are on no path
-PATH_KERNELS = (composite_sky_fwd, composite_sky_bwd, self_attention_fwd, self_attention_bwd, hash_scatter)
+# the kernels of the render and train paths (a render runs K1, K2 and K4 forward alone; the backwards
+# run in training); K3 (fused_composite) and P1 (row_gather) are on no path
+PATH_KERNELS = (composite_sky_fwd, composite_sky_bwd, self_attention_fwd, self_attention_bwd, hash_encode_fwd,
+                hash_encode_bwd)
 # the kernels of the bf16 train path: K1 takes float32 there too, K2 bf16
 BF16_PATH_KERNELS = (composite_sky_fwd, composite_sky_bwd, self_attention_bf16_fwd, self_attention_bf16_bwd,
-                     hash_scatter)
+                     hash_encode_fwd, hash_encode_bwd)
 COUNTED_KERNELS = PATH_KERNELS + BF16_PATH_KERNELS[2:4]
 # the bf16 train path: the JAX package's benchmark program, 8 chunks of 14,230 rays
 BF16_CHUNKS = 8
@@ -924,52 +934,165 @@ def _index_add_scatter(grads, idxs, table_shape) -> torch.Tensor:
     return acc.to(grads[0].dtype)
 
 
-def _k4_bwd_rows(trainer: Trainer, name: str) -> list:
-    """K4's backward on a train step's own contributions: one more step, after the timed ones, with the
-    tables' gradient scatter wrapped. One row a grid (named by its table's shape and corners): the share
-    of the step's contributions (gradient rows of F values) that are exact zeros, +0 or -0, which the
-    kernel skips; and, on the grid's first encode, the kernel held to the float64 sum (``float64_sum``),
-    its time against its bytes bound, the plain path's (a zero table a corner, torch's accumulating index
-    put, the corner tables summed), the library call's (``_index_add_scatter``) and its launches an
-    encode."""
-    src = {"route": "cuda", "source": "neuradar_tpu_torch/csrc/hash_scatter.cu",
-           "replaces": "none (XLA in the JAX package: neuradar_tpu/field_components/encodings.py:192-248)"}
-    rows, tallies = {}, {}
+K4_SOURCE = {"route": "cuda", "source": "neuradar_tpu_torch/csrc/hash_encode.cu",
+             "replaces": "none (XLA in the JAX package: neuradar_tpu/field_components/encodings.py:192-248)"}
+SECTOR_BYTES = 32  # the card's smallest read from device memory
 
-    def measured(grads, idxs, table_shape):
-        C, (N, L), (LT, F) = len(grads), idxs[0].shape, table_shape
-        T, dtype = LT // L, grads[0].dtype
-        key = f"{L}x{T}x{F}, {C} corners"
-        if key not in rows:
-            launches = hash_scatter.launches  # the checks' and timings' launches are not the path's
-            exact, bound = float64_sum(grads, idxs, table_shape)
-            err = (hash_scatter(grads, idxs, table_shape).double() - exact).abs()
-            _expect(bool((err <= bound).all()), f"K4 bwd on a {name} step's contributions, {key}: off the float64 sum")
-            e = grads[0].element_size()
-            rows[key] = {"name": "hash_scatter", **src, "path": f"train_{name}", "grid": key,
-                         "shape": [C, N, L, T, F], "dtype": str(dtype).removeprefix("torch."),
-                         "max_abs_err": float(err.max()),
-                         "launches_per_encode": math.ceil(L / levels_per_launch(T, F, L, dtype)),
-                         **_times(lambda: hash_scatter(grads, idxs, table_shape),
-                                  lambda: hash_scatter_reference(grads, idxs, table_shape),
-                                  lambda: _index_add_scatter(grads, idxs, table_shape)),
-                         # each contribution's gradient row and int64 index read once, the gradient written once
-                         **_bound(C * N * L * (F * e + 8) + LT * F * e, C * N * L * F)}
-            hash_scatter.launches = launches
-            del exact, bound, err
-        tally = tallies.setdefault(key, [0, 0])
-        tally[0] += sum((g == 0).all(dim=-1).sum() for g in grads)  # a tensor on the card: no sync in the step
-        tally[1] += C * N * L
-        return hash_scatter(grads, idxs, table_shape)
 
-    encodings.hash_scatter = measured
+def _k4_capture(fn) -> tuple:
+    """Run ``fn`` with the encode's op wrapped and the port's counters recording. Per grid (d, L, T, F):
+    the first encode's inputs, and the first encode with a gradient's inputs with its output's gradient
+    (a hook; a recomputed chunk's gradient reaches the first forward's output). Returns both and the
+    counts of encodes that took the kernel and the plain path, and of host syncs."""
+    fwd, bwd = {}, {}
+    op = hash_encode_op.hash_encode
+
+    def wrapped(positions, table, scalings, T, L, F):
+        out = op(positions, table, scalings, T, L, F)
+        key = (positions.shape[1], L, T, F)
+
+        def inputs():
+            return {"positions": positions.detach().clone(), "table": table.detach().clone(),
+                    "scalings": tuple(scalings), "T": T, "L": L, "F": F}
+
+        if key not in fwd:
+            fwd[key] = inputs()
+        if out.requires_grad and key not in bwd:
+            cap = bwd[key] = {**inputs(), "pos_grad": positions.requires_grad, "table_grad": table.requires_grad}
+            out.register_hook(lambda g: cap.setdefault("grad_out", g.detach().clone()))
+        return out
+
+    hash_encode_op.hash_encode = wrapped
     try:
-        trainer.train_step()
+        with trace.recording():
+            fn()
+            snap = trace.snapshot()
     finally:
-        encodings.hash_scatter = hash_scatter
-    for key, (zeros, n) in tallies.items():
-        rows[key].update(zero_share=float(zeros) / n, step_contributions=n)
-    return list(rows.values())
+        hash_encode_op.hash_encode = op
+    return fwd, bwd, {k: snap.total(k) for k in ("hash_encode_kernel", "hash_encode_plain", "host_syncs")}
+
+
+def _k4_grid(cap) -> str:
+    return f"{cap['L']}x{cap['T']}x{cap['F']}, d {cap['positions'].shape[1]}"
+
+
+def _k4_lookup_bytes(pos: torch.Tensor, table: torch.Tensor, scal, T: int, L: int, F: int) -> int:
+    """The bytes the lookups of these positions need from device memory: the distinct 32-byte sectors
+    that each level's corner rows touch (at most the level's table; a sector read twice, or served from
+    the L2, counts once)."""
+    rows = encodings.corner_rows(pos.to(table.dtype), scal, T, L)
+    sectors = torch.stack([i for i, _ in rows]) * (F * table.element_size()) // SECTOR_BYTES
+    del rows
+    return SECTOR_BYTES * int(torch.unique(sectors).numel())
+
+
+def _k4_fwd_row(cap: dict, path: str) -> dict:
+    """K4's forward on one encode's own inputs: bit-equal to the plain path, its time against its bytes
+    bound (positions read once, output written once, the lookups' distinct sectors) and the plain
+    path's."""
+    pos, table, scal, T, L, F = (cap[k] for k in ("positions", "table", "scalings", "T", "L", "F"))
+    (N, d), R = pos.shape, table.dtype
+    launches = hash_encode_fwd.launches  # the checks' and timings' launches are not the path's
+
+    def plain():
+        return encodings.hash_encode(pos.to(R), table, scal, T, L, F).to(pos.dtype)
+
+    with torch.no_grad():
+        equal = torch.equal(hash_encode_fwd(pos, table, scal, T, L, F), plain())
+        _expect(equal, f"K4 fwd on {path}'s encode of {_k4_grid(cap)}: not the plain path's bits")
+        row = {"name": "hash_encode_fwd", **K4_SOURCE, "path": path, "grid": _k4_grid(cap), "shape": [N, d, L, T, F],
+               "dtype": str(R).removeprefix("torch."), "bit_equal": equal, "launches_per_encode": 1,
+               **_times(lambda: hash_encode_fwd(pos, table, scal, T, L, F), plain, plain_syncs=True),
+               **_bound(N * d * pos.element_size() + N * L * F * pos.element_size()
+                        + _k4_lookup_bytes(pos, table, scal, T, L, F), N * L * 2**d * (d - 1 + 2 * F))}
+    hash_encode_fwd.launches = launches
+    return row
+
+
+def _k4_bwd_row(cap: dict, path: str) -> dict:
+    """K4's backward on one encode's own inputs and output gradient: the table's gradient held to the
+    float64 sum of the plain path's corner gradients (``float64_sum``), the positions' no further (L2)
+    from their float64 evaluation (``encodings.positions_grad_float64``) than plain autograd's, the share
+    of the corner gradients (rows of F values) that are exact zeros (the kernel skips them), its time
+    against its bytes bound (positions and the output's gradient read once, the gradients written once;
+    the lookups' distinct sectors where the positions need a gradient), the plain path's backward and the
+    library call's (``_index_add_scatter`` of the corner gradients: the table's alone)."""
+    pos, table, scal, T, L, F = (cap[k] for k in ("positions", "table", "scalings", "T", "L", "F"))
+    grad_out, pos_grad, table_grad = cap["grad_out"].contiguous(), cap["pos_grad"], cap["table_grad"]
+    (N, d), R = pos.shape, table.dtype
+    launches = hash_encode_bwd.launches
+
+    def kernel():
+        return hash_encode_bwd(grad_out, pos, table, scal, T, L, F, pos_grad, table_grad)
+
+    gp, gt = kernel()
+    rows = encodings.corner_rows(pos.to(R), scal, T, L)
+    g = grad_out.to(R).reshape(N, L, F)
+    grads, idxs = [g * w[..., None] for _, w in rows], [i for i, _ in rows]
+    del rows
+    pp = pos.clone().requires_grad_(pos_grad)
+    tp = table.clone().requires_grad_(table_grad)
+    out = encodings.hash_encode(pp.to(R), tp, scal, T, L, F).to(pos.dtype)
+    wrt = [t for t, need in ((pp, pos_grad), (tp, table_grad)) if need]
+    plain_grads = torch.autograd.grad(out, wrt, grad_out, retain_graph=True)
+    row = {"name": "hash_encode_bwd", **K4_SOURCE, "path": path, "grid": _k4_grid(cap), "shape": [N, d, L, T, F],
+           "dtype": str(R).removeprefix("torch."), "pos_grad": pos_grad, "table_grad": table_grad,
+           "zero_share": float(sum((c == 0).all(dim=-1).sum() for c in grads)) / (2**d * N * L),
+           "launches_per_encode": math.ceil(L / levels_per_launch(T, F, L, R)) if table_grad else 1}
+    if table_grad:
+        exact, bound = float64_sum(grads, idxs, (L * T, F))
+        err = (gt.view(L * T, F).double() - exact).abs()
+        _expect(bool((err <= bound).all()), f"K4 bwd on {path}'s encode of {_k4_grid(cap)}: off the float64 sum")
+        row["max_abs_err"] = float(err.max())
+        del exact, bound, err
+    if pos_grad:
+        ref = encodings.positions_grad_float64(pos.to(R), table, scal, T, L, grad_out)
+        err, err_plain = float((gp.double() - ref).norm()), float((plain_grads[0].double() - ref).norm())
+        row.update(pos_grad_ref_norm=float(ref.norm()), pos_grad_err=err, pos_grad_err_plain=err_plain)
+        _expect(err <= err_plain, f"K4 bwd on {path}'s encode of {_k4_grid(cap)}: the positions' gradient is "
+                                  f"further from float64 ({err}) than plain autograd's ({err_plain})")
+        del ref
+    pos_bytes, e = pos.element_size(), table.element_size()
+    nbytes = N * d * pos_bytes + N * L * F * pos_bytes + (L * T * F * e if table_grad else 0)
+    if pos_grad:
+        nbytes += N * d * pos_bytes + _k4_lookup_bytes(pos, table, scal, T, L, F)
+    row.update(**_times(kernel, lambda: torch.autograd.grad(out, wrt, grad_out, retain_graph=True),
+                        (lambda: _index_add_scatter(grads, idxs, (L * T, F))) if table_grad else None,
+                        plain_syncs=True),
+               **_bound(nbytes, N * L * 2**d * (2 * F + (d * d + F if pos_grad else 0))))
+    hash_encode_bwd.launches = launches
+    return row
+
+
+def _k4_rows(trainer: Trainer, name: str) -> list:
+    """K4's rows on the preset's own encodes, one a grid and path: one more train step (path
+    train_<name>: forward and backward rows), and with radar an eval frame (render_<name>) and a radar
+    scan (render_radar_<name>), forward rows. Every encode of each must take the kernel
+    (``hash_encode_plain`` 0). With the camera optimizer on, the static grid's positions need a gradient
+    on the train path, and its row must check it on a gradient that is not all zeros."""
+    pipe = trainer.pipeline
+    runs = [(f"train_{name}", trainer.train_step)]
+    if pipe.layout.num_radar_scans > 0:
+        cam_idx = int(pipe.datamanager.eval_camera_indices()[0])
+        scan = int(pipe.datamanager.eval_radar_indices()[0])
+        runs += [(f"render_{name}", lambda: pipe.render_camera(cam_idx)),
+                 (f"render_radar_{name}", lambda: pipe.render_radar(scan))]
+    rows = []
+    for path, fn in runs:
+        fwd, bwd, counts = _k4_capture(fn)
+        phase("k4_encodes", path=path, **counts)
+        _expect(counts["hash_encode_plain"] == 0 and counts["hash_encode_kernel"] > 0,
+                f"{path}: an encode took the plain path: {counts}")
+        rows += [_k4_fwd_row(cap, path) for cap in fwd.values()]
+        rows += [_k4_bwd_row(cap, path) for cap in bwd.values()]
+        del fwd, bwd
+        torch.cuda.empty_cache()
+    if trainer.config.pipeline.model.camera_optimizer.mode != "off":
+        static = [r for r in rows if r["name"] == "hash_encode_bwd" and r["shape"][1] == 3 and r["pos_grad"]]
+        _expect(any(r["pos_grad_ref_norm"] > 0 for r in static),
+                f"{name}: no static grid's positions' gradient was checked on nonzero values: {static}")
+    return rows
+
 
 def _zero_counts() -> None:
     for k in COUNTED_KERNELS:
@@ -1022,9 +1145,7 @@ def train_preset(device: torch.device, name: str, scene, fid_frames: int = 0) ->
         _expect(_finite_dict(values), f"{name} train step {step}: a loss term is not finite: {values}")
         _expect(("camera_opt_regularizer" in values) == (m.camera_optimizer.mode != "off"),
                 f"{name}: camera_opt_regularizer {sorted(values)}")
-    k4_bwd = _k4_bwd_rows(trainer, name)
-    phase(f"train_{name}_k4_bwd", rows=k4_bwd)
-    eval_report = {"k4_bwd": k4_bwd}
+    eval_report = {}
     radar = layout.num_radar_scans > 0
     if radar:
         (losses, _), eval_s = _timed(trainer.eval_loss)
@@ -1032,6 +1153,9 @@ def train_preset(device: torch.device, name: str, scene, fid_frames: int = 0) ->
         _expect(_finite_dict(eval_values), f"{name} eval loss not finite: {eval_values}")
         eval_report["eval_loss"] = {"seconds": eval_s, "losses": eval_values}
     launches = {f"train_{name}": _counts()}
+    # after the path's count: K4's extra step and renders are not the path's launches
+    eval_report["k4"] = _k4_rows(trainer, name)
+    phase(f"train_{name}_k4", rows=eval_report["k4"])
     changed = {g: any(not torch.equal(p, q) for p, q in zip(groups[g], before[g])) for g in groups}
     phase(f"train_{name}_params_changed", groups=changed)
     if m.camera_optimizer.mode != "off":
@@ -1805,6 +1929,32 @@ def train_splat(trainer) -> dict:
             "launches": launches, "changed": changed}
 
 
+def train_presets(device: torch.device, gpu: str) -> tuple:
+    """The PRESETS (neuradar and neurad) on the ZOD-camera scene through ``train_preset``, each path's
+    launches checked: K1 on every train path, K2 at bf16 exactly where there is radar and never the float32
+    K2, and on neuradar's eval frame and radar scan only their kernels. Returns K4's rows and the launches
+    by path."""
+    scene = zod_camera_scene_outputs()
+    rows, preset_launches = [], {}
+    for name in PRESETS:
+        t0 = time.perf_counter()
+        report = train_preset(device, name, scene)
+        preset_launches.update(report["launches"])
+        rows.extend(report.pop("k4"))
+        phase("train_presets", preset=name, seconds=time.perf_counter() - t0, gpu=gpu, **report)
+        got = report["launches"][f"train_{name}"]
+        _expect(got["composite_sky_fwd"] > 0 and got["composite_sky_bwd"] > 0, f"{name}: K1 never launched: {got}")
+        _expect(got["self_attention_fwd"] == 0 and got["self_attention_bwd"] == 0, f"{name} launched the float32 K2")
+        radar = name != "neurad"
+        _expect((got["self_attention_bf16_fwd"] > 0 and got["self_attention_bf16_bwd"] > 0) == radar,
+                f"{name}: K2 at bf16 launches {got}, radar {radar}")
+    for path, kernels in (("render_neuradar", {"composite_sky_fwd", "hash_encode_fwd"}),
+                          ("render_radar_neuradar", {"composite_sky_fwd", "self_attention_bf16_fwd", "hash_encode_fwd"})):
+        got = preset_launches[path]
+        _expect(all((n > 0) == (k in kernels) for k, n in got.items()), f"{path}: launches {got}")
+    return rows, preset_launches
+
+
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     if not torch.cuda.is_available():
@@ -1825,6 +1975,16 @@ def main(argv=None) -> int:
     lib = build.build(verbose=True)
     build.load()
     phase("build", seconds=time.perf_counter() - t0, library=str(lib.name))
+
+    if argv == ["k4"]:
+        # K4 alone: the presets' steps, eval frame and radar scan, with K4's rows on their own encodes
+        rows, launches = train_presets(device, smi.splitlines()[0])
+        for row in rows:
+            row["launches"] = launches[row["path"]][row["name"]]
+        print(json.dumps({"kernels": rows}))
+        print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                                 "count": torch.cuda.device_count()}}))
+        return 0
 
     t0 = time.perf_counter()
     trainer = _splat_trainer(device)
@@ -1852,7 +2012,7 @@ def main(argv=None) -> int:
     for row in rows[:-len(splat_rows)]:
         phase("kernel", **row)
 
-    render_kernels = (composite_sky_fwd, self_attention_fwd)
+    render_kernels = (composite_sky_fwd, self_attention_fwd, hash_encode_fwd)
     for k in COUNTED_KERNELS:
         k.launches = 0
     t0 = time.perf_counter()
@@ -1886,49 +2046,33 @@ def main(argv=None) -> int:
     phase("train_set", seconds=time.perf_counter() - t0, **report)
     _expect(all(set_launches["train_set"][k.__name__] > 0 for k in BF16_PATH_KERNELS),
             f"a kernel of the set decoder's train path never launched: {set_launches}")
-    # the renders: K1 forward alone on the bench frame; K1 and K2 at bf16 forward on the radar scans
-    for path, kernels in (("render_bf16", {"composite_sky_fwd"}),
-                          ("render_radar_set", {"composite_sky_fwd", "self_attention_bf16_fwd"}),
-                          ("eval_radar_set", {"composite_sky_fwd", "self_attention_bf16_fwd"})):
+    # the renders: K1 and K4 forward alone on the bench frame; K1, K2 at bf16 and K4 forward on the radar scans
+    for path, kernels in (("render_bf16", {"composite_sky_fwd", "hash_encode_fwd"}),
+                          ("render_radar_set", {"composite_sky_fwd", "self_attention_bf16_fwd", "hash_encode_fwd"}),
+                          ("eval_radar_set", {"composite_sky_fwd", "self_attention_bf16_fwd", "hash_encode_fwd"})):
         got = {**bf16_launches, **set_launches}[path]
         _expect(all((n > 0) == (k in kernels) for k, n in got.items()), f"{path}: launches {got}")
     for path, got in (*bf16_launches.items(), *set_launches.items()):
         _expect(got["self_attention_fwd"] == 0 and got["self_attention_bwd"] == 0, f"{path} launched the float32 K2")
 
-    scene = zod_camera_scene_outputs()
-    preset_launches = {}
-    for name in PRESETS:
-        t0 = time.perf_counter()
-        report = train_preset(device, name, scene)
-        preset_launches.update(report["launches"])
-        rows.extend(report.pop("k4_bwd"))
-        phase("train_presets", preset=name, seconds=time.perf_counter() - t0, gpu=smi.splitlines()[0], **report)
-        got = report["launches"][f"train_{name}"]
-        _expect(got["composite_sky_fwd"] > 0 and got["composite_sky_bwd"] > 0, f"{name}: K1 never launched: {got}")
-        _expect(got["self_attention_fwd"] == 0 and got["self_attention_bwd"] == 0, f"{name} launched the float32 K2")
-        radar = name != "neurad"
-        _expect((got["self_attention_bf16_fwd"] > 0 and got["self_attention_bf16_bwd"] > 0) == radar,
-                f"{name}: K2 at bf16 launches {got}, radar {radar}")
-    for path, kernels in (("render_neuradar", {"composite_sky_fwd"}),
-                          ("render_radar_neuradar", {"composite_sky_fwd", "self_attention_bf16_fwd"})):
-        got = preset_launches[path]
-        _expect(all((n > 0) == (k in kernels) for k, n in got.items()), f"{path}: launches {got}")
-    del scene
+    preset_rows, preset_launches = train_presets(device, smi.splitlines()[0])
+    rows.extend(preset_rows)
 
     # VoD's preset on the synthetic scene in VoD's sensors: 127,744 rays a step, 4,400 a radar scan;
     # then the shifted-view FIDs of 2 eval frames (8 renders each: 3 lane shifts, 1 vertical, 4 actor edits)
     t0 = time.perf_counter()
     report = train_preset(device, VOD_PRESET, vod_sensor_scene_outputs(), fid_frames=VOD_FID_FRAMES)
     preset_launches.update(report["launches"])
-    rows.extend(report.pop("k4_bwd"))
+    rows.extend(report.pop("k4"))
     setup = report["setup"]
     phase("train_vod", preset=VOD_PRESET, seconds=time.perf_counter() - t0, gpu=smi.splitlines()[0], **report)
     _expect(setup["rays_per_step"] == VOD_STEP_RAYS and report["render_radar"]["shape"] == [VOD_SCAN_RAYS, 7],
             f"{VOD_PRESET}: {setup['rays_per_step']} rays a step, radar {report['render_radar']['shape']}")
     for path, kernels in ((f"train_{VOD_PRESET}", set(k.__name__ for k in BF16_PATH_KERNELS)),
-                          (f"render_{VOD_PRESET}", {"composite_sky_fwd"}),
-                          (f"render_radar_{VOD_PRESET}", {"composite_sky_fwd", "self_attention_bf16_fwd"}),
-                          (f"fid_{VOD_PRESET}", {"composite_sky_fwd"})):
+                          (f"render_{VOD_PRESET}", {"composite_sky_fwd", "hash_encode_fwd"}),
+                          (f"render_radar_{VOD_PRESET}", {"composite_sky_fwd", "self_attention_bf16_fwd",
+                                                           "hash_encode_fwd"}),
+                          (f"fid_{VOD_PRESET}", {"composite_sky_fwd", "hash_encode_fwd"})):
         got = report["launches"][path]
         _expect(all((n > 0) == (k in kernels) for k, n in got.items()), f"{path}: launches {got}")
     phase("train_presets_agreement", **check_tiny_train_agreement(device, preset="neurad"))
@@ -1949,14 +2093,14 @@ def main(argv=None) -> int:
         phase("cli_train", launches=cli_launches, **report)
         _expect(all(n > 0 for n in cli_launches.values()),
                 f"a kernel of the train command never launched: {cli_launches}")
-        # the render and export commands on that run: K1 and the float32 K2 forward alone
+        # the render and export commands on that run: K1, K4 and the float32 K2 forward alone
         _zero_counts()
         t0 = time.perf_counter()
         report = cli_render(CLI_RUN_DIR)
         render_cli_launches = _counts()
         phase("cli_render", seconds=time.perf_counter() - t0, launches=render_cli_launches, gpu=smi.splitlines()[0],
               **report)
-        _expect(all((n > 0) == (k in ("composite_sky_fwd", "self_attention_fwd"))
+        _expect(all((n > 0) == (k in ("composite_sky_fwd", "self_attention_fwd", "hash_encode_fwd"))
                     for k, n in render_cli_launches.items()), f"render_cli: launches {render_cli_launches}")
     finally:
         shutil.rmtree(CLI_RUN_DIR / "checkpoints", ignore_errors=True)  # ~1.8 GB each; the logs stay

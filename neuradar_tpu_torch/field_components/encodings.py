@@ -5,8 +5,8 @@ field_components/encodings.py: ``HashEncoding`` forward and ``SHEncoding``).
 combined corner gather (``_gather_corner_features`` / ``_hash_encode_fwd``),
 written as a loop over the 2^d cell corners so that no [N, 2^d * L * F]
 index tensor is materialized. The JAX package runs it as XLA, not Pallas; in
-this port its forward is plain PyTorch and its tables' gradient a kernel
-(``ops/hash_scatter.py``).
+this port it is the plain path, and the encode on the card is a kernel
+(``ops/hash_encode.py``).
 
 The hash matches the JAX package bit for bit: there the products are uint32
 with wraparound; here they are int64, and masking with table_size - 1 keeps
@@ -21,13 +21,20 @@ positions' dtype. ``cast_hash_tables`` casts every table of a module tree
 once (the hoisted cast); an encoder handed its cast table gathers from it,
 and its own cast is then a no-op.
 
-With gradients on and a table that needs one, the 2^d corners' ``table[idx]`` go through one
-``_CornerGather`` an encode, whose backward (the tables' gradient scatter, K4's backward) runs inside
-the span ``hash_encode/scatter``, timed on the card: ``ops.hash_scatter`` adds every corner's
-gradient into the table's at once, with the kernel in ``csrc/hash_scatter.cu`` on CUDA tensors, and
-on CPU tensors as autograd would for separate gathers (bit for bit). The corner weights, their
-float32 sum and the positions' gradient stay with autograd. Without gradients each corner is a
-plain ``table[idx]``, its index freed before the next corner's is made.
+On CUDA tensors of a templated grid (d 3 or 4, F 1, 2 or 4, a float32 or bf16 table) an encode is
+one hand-written op, ``ops/hash_encode.hash_encode`` (K4, ``csrc/hash_encode.cu``): one launch
+forward, bit-equal to the formulation here, with the level scalings rounded to the compute type once on
+the host (``HashEncoding.host_scalings``), so no encode copies them to the card; one launch a group of
+levels backward, inside the span ``hash_encode/scatter``, which recomputes the corners from the
+positions and adds the tables' gradient and, where needed, the positions'. The counters
+``hash_encode_kernel`` and ``hash_encode_plain`` count the encodes that took the kernel and the plain
+path. The kernel covers every preset's grid and refuses any other encode on the card (there is no
+fallback there). Every encode on the CPU is the plain path below: with gradients on and a table that
+needs one, the 2^d corners' ``table[idx]`` go through one ``_CornerGather`` an
+encode, whose backward adds every corner's gradient into the table's as autograd would for separate
+gathers (``ops/hash_scatter.hash_scatter_reference``, bit for bit), inside ``hash_encode/scatter``;
+the corner weights, their float32 sum and the positions' gradient stay with autograd. Without
+gradients each corner is a plain ``table[idx]``, its index freed before the next corner's is made.
 """
 
 from __future__ import annotations
@@ -39,7 +46,8 @@ import numpy as np
 import torch
 from torch import nn
 
-from neuradar_tpu_torch.ops.hash_scatter import hash_scatter
+from neuradar_tpu_torch.ops import hash_encode as hash_encode_op
+from neuradar_tpu_torch.ops.hash_scatter import hash_scatter_reference
 from neuradar_tpu_torch.utils import trace
 
 # Instant-NGP / tcnn primes; the fourth hashes the actor index of the 4-D grid
@@ -59,7 +67,7 @@ class _CornerGather(torch.autograd.Function):
     @staticmethod
     def backward(ctx, *grads: torch.Tensor):
         with trace.span("hash_encode/scatter", device=grads[0].is_cuda):
-            grad_table = hash_scatter(grads, ctx.saved_tensors, ctx.table_shape)
+            grad_table = hash_scatter_reference(grads, ctx.saved_tensors, ctx.table_shape)
         return (grad_table, *(None for _ in grads))
 
 
@@ -68,45 +76,92 @@ def _gather_corners(table: torch.Tensor, idxs: Sequence[torch.Tensor]) -> Sequen
     return _CornerGather.apply(table, *idxs)
 
 
-def hash_encode(positions: torch.Tensor, table_flat: torch.Tensor, scalings: Sequence[float], table_size: int,
-                num_levels: int, features_per_level: int) -> torch.Tensor:
-    """Multiresolution hash encoding: positions [N, d] in [0, 1] -> [N, L * F]."""
-    N, d = positions.shape
-    L, F = num_levels, features_per_level
+def _cells(positions: torch.Tensor, scalings: Sequence[float]) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Each point's cell at each level: its corner's integer coordinates [N, L, d] (int64) and its
+    offsets in the positions' dtype."""
     with trace.host_sync("hash_scalings"):
         scal = torch.tensor(scalings, dtype=positions.dtype, device=positions.device)
     scaled = positions[:, None, :] * scal[:, None]  # [N, L, d]
     floored = torch.floor(scaled)
     offset = scaled - floored
-    base = floored.long()
+    return floored.long(), offset
+
+
+def _corner_index(base: torch.Tensor, corner: int, table_size: int, level_offsets: torch.Tensor) -> torch.Tensor:
+    """The corner's row of the [L * T, F] table [N, L]."""
+    idx = (base[..., 0] + (corner & 1)) * _HASH_PRIMES[0]
+    for i in range(1, base.shape[-1]):
+        idx = idx ^ ((base[..., i] + ((corner >> i) & 1)) * _HASH_PRIMES[i])
+    return (idx & (table_size - 1)) + level_offsets
+
+
+def _corner_weight(offset: torch.Tensor, corner: int) -> torch.Tensor:
+    """The corner's trilinear (quadrilinear) weight [N, L]: its factors multiplied in axis order."""
+    w = None
+    for i in range(offset.shape[-1]):
+        wi = offset[..., i] if (corner >> i) & 1 else 1 - offset[..., i]
+        w = wi if w is None else w * wi
+    return w
+
+
+def corner_rows(positions: torch.Tensor, scalings: Sequence[float], table_size: int,
+                num_levels: int) -> list:
+    """Every corner's (rows [N, L], weights [N, L]) of the plain path, for positions [N, d] in the
+    compute type: the corner gradients of the table are ``grad [N, L, F] * weight[..., None]`` in it."""
+    base, offset = _cells(positions, scalings)
+    level_offsets = torch.arange(num_levels, device=positions.device) * table_size
+    return [(_corner_index(base, c, table_size, level_offsets), _corner_weight(offset, c))
+            for c in range(2**positions.shape[1])]
+
+
+def positions_grad_float64(positions: torch.Tensor, table_flat: torch.Tensor, scalings: Sequence[float],
+                           table_size: int, num_levels: int, grad_out: torch.Tensor) -> torch.Tensor:
+    """The positions' gradient [N, d] of the encode of ``positions`` [N, d] (in the compute type R) through
+    ``table_flat`` (in R) for ``grad_out`` [N, L * F], evaluated in float64 from the cells and offsets as
+    the plain path rounds them in R: per level and axis i, the level's scaling (rounded to R) times the sum
+    over corners of (grad . row) * (+1 or -1) * the product of the other axes' factors (offset or
+    1 - offset), summed over levels. The reference the kernel's and plain autograd's gradients are held to."""
+    N, d = positions.shape
+    L, T = num_levels, table_size
+    base, offset = _cells(positions, scalings)
+    o, r = offset.double(), (1 - offset).double()
+    table = table_flat.double().view(L * T, -1)
+    level_offsets = torch.arange(L, device=positions.device) * T
+    g = grad_out.double().reshape(N, L, -1)
+    q = torch.zeros((N, L, d), dtype=torch.float64, device=positions.device)
+    for c in range(2**d):
+        dot = (table[_corner_index(base, c, T, level_offsets)] * g).sum(-1)  # [N, L]
+        for i in range(d):
+            t = dot
+            for j in range(d):
+                if j != i:
+                    t = t * (o[..., j] if (c >> j) & 1 else r[..., j])
+            q[..., i] += t if (c >> i) & 1 else -t
+    scal = torch.tensor(scalings, dtype=positions.dtype, device=positions.device).double()
+    return (q * scal[:, None]).sum(1)
+
+
+def hash_encode(positions: torch.Tensor, table_flat: torch.Tensor, scalings: Sequence[float], table_size: int,
+                num_levels: int, features_per_level: int) -> torch.Tensor:
+    """Multiresolution hash encoding, the plain formulation: positions [N, d] in [0, 1] -> [N, L * F]."""
+    N, d = positions.shape
+    L, F = num_levels, features_per_level
+    base, offset = _cells(positions, scalings)
     level_offsets = torch.arange(L, device=positions.device) * table_size
     table = table_flat.view(L * table_size, F)
 
-    def corner_index(corner: int) -> torch.Tensor:
-        idx = (base[..., 0] + (corner & 1)) * _HASH_PRIMES[0]
-        for i in range(1, d):
-            idx = idx ^ ((base[..., i] + ((corner >> i) & 1)) * _HASH_PRIMES[i])
-        return (idx & (table_size - 1)) + level_offsets  # [N, L]
-
-    def corner_weight(corner: int) -> torch.Tensor:
-        w = None
-        for i in range(d):
-            wi = offset[..., i] if (corner >> i) & 1 else 1 - offset[..., i]
-            w = wi if w is None else w * wi
-        return w
-
     corners = range(2**d)
     if torch.is_grad_enabled() and table.requires_grad:
-        feats = list(_gather_corners(table, [corner_index(c) for c in corners]))
+        feats = list(_gather_corners(table, [_corner_index(base, c, table_size, level_offsets) for c in corners]))
     else:
         feats = None
     out = None
     for corner in corners:
         if feats is None:
-            feat = table[corner_index(corner)]
+            feat = table[_corner_index(base, corner, table_size, level_offsets)]
         else:
             feat, feats[corner] = feats[corner], None
-        term = (feat * corner_weight(corner)[..., None]).float()  # [N, L, F]
+        term = (feat * _corner_weight(offset, corner)[..., None]).float()  # [N, L, F]
         out = term if out is None else out + term
     return out.to(table_flat.dtype).reshape(N, L * F)
 
@@ -145,9 +200,17 @@ class HashEncoding(nn.Module):
         self.table_size = 2**log2_hashmap_size
         n = self.table_size * num_levels * features_per_level
         self.hash_table = nn.Parameter(torch.empty(n))
+        self._host_scalings: Dict[torch.dtype, Tuple[float, ...]] = {}
 
     def get_out_dim(self) -> int:
         return self.num_levels * self.features_per_level
+
+    def host_scalings(self, dtype: torch.dtype) -> Tuple[float, ...]:
+        """The level scalings rounded to ``dtype`` on the host, once a dtype: the kernel's launch
+        arguments."""
+        if dtype not in self._host_scalings:
+            self._host_scalings[dtype] = hash_encode_op.host_scalings(self.scalings, dtype)
+        return self._host_scalings[dtype]
 
     def forward(self, positions: torch.Tensor, tables: Optional[Dict[nn.Module, torch.Tensor]] = None) -> torch.Tensor:
         """[..., d] in [0, 1] -> [..., L * F] in the positions' dtype; ``tables`` may hold this
@@ -157,12 +220,25 @@ class HashEncoding(nn.Module):
         batch_shape = positions.shape[:-1]
         table = tables.get(self, self.hash_table) if tables else self.hash_table
         pos_dtype = positions.dtype
+        L, F = self.num_levels, self.features_per_level
         if self.compute_dtype is not None:
             table = table.to(self.compute_dtype)
+        if positions.is_cuda:
+            if self.compute_dtype is None and pos_dtype != table.dtype:
+                # the kernel computes in the table's dtype; the plain path here would in the promoted one
+                raise TypeError(f"without a compute dtype the encode needs positions in the table's dtype "
+                                f"{table.dtype}, got {pos_dtype}")
+            with trace.span("hash_encode"):
+                trace.count("hash_encode_kernel")
+                out = hash_encode_op.hash_encode(positions.reshape(-1, self.n_input_dims), table,
+                                                 self.host_scalings(table.dtype), self.table_size, L, F)
+            return out.reshape(*batch_shape, self.get_out_dim())
+        if self.compute_dtype is not None:
             positions = positions.to(self.compute_dtype)
         with trace.span("hash_encode"):
+            trace.count("hash_encode_plain")
             out = hash_encode(positions.reshape(-1, self.n_input_dims), table, self.scalings,
-                              self.table_size, self.num_levels, self.features_per_level)
+                              self.table_size, L, F)
         return out.reshape(*batch_shape, self.get_out_dim()).to(pos_dtype)
 
 

@@ -22,7 +22,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-SOURCES = ("composite_sky.cu", "attention.cu", "attention_bf16.cu", "gather.cu", "hash_scatter.cu",
+SOURCES = ("composite_sky.cu", "attention.cu", "attention_bf16.cu", "gather.cu", "hash_encode.cu",
            "splat_raster.cu")
 HEADERS = ("attention_common.cuh",)
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
@@ -33,7 +33,7 @@ _I = ctypes.c_int
 _U = ctypes.c_uint
 _F = ctypes.c_float
 _L = ctypes.c_longlong
-_PP = ctypes.POINTER(ctypes.c_void_p)
+_FP = ctypes.POINTER(ctypes.c_float)
 _SIGNATURES = {
     # alpha, feats, w_sky, features, accum, R, S, C, stream
     "composite_sky_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
@@ -52,8 +52,11 @@ _SIGNATURES = {
     "self_attention_bf16_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _U, _U, _F, _P],
     # q, k, v, out32, dout, lse, scratch, dq, dk, dv, B, S, D, scale, seed, thresh, inv_keep, stream
     "self_attention_bf16_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _U, _U, _F, _P],
-    # grads, idx (host arrays of 2^d device pointers), corners, N, L, F, T, l0, l1, bf16, acc, out, stream
-    "hash_scatter": [_PP, _PP, _I, _L, _I, _I, _L, _I, _I, _I, _P, _P, _P],
+    # pos, table, table_bf16, out, scalings (a host array), N, D, L, F, T, stream
+    "hash_encode_fwd": [_P, _P, _I, _P, _FP, _L, _I, _I, _I, _L, _P],
+    # pos, table, table_bf16, grad_out, scalings, N, D, L, F, T, l0, l1, acc, table_grad, pos_acc, pos_grad,
+    # first, last, stream
+    "hash_encode_bwd": [_P, _P, _I, _P, _FP, _L, _I, _I, _I, _L, _I, _I, _P, _P, _P, _P, _I, _I, _P],
     # feats, radius, in_view, G, tw, th, tile_r, counts, tile_counts, stream
     "splat_bin_count": [_P, _P, _P, _I, _I, _I, _F, _P, _P, _P],
     # feats, radius, in_view, ends, counts, G, tw, th, tile_r, keys, gids, stream
