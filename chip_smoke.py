@@ -70,25 +70,25 @@ Phases, one line each before the final JSON line:
      of the gradient;
   3c. train_splat: splatfacto-big's SplatfactoTrainer on that state, from
      step 15,000 (its first step refines), 5 train steps of 2,354,176 pixels
-     each timed, the loss finite, every parameter group changed, K5 forward,
-     backward and binning launched once a step;
+     each, the loss finite, every parameter group changed, K5's binning (count
+     and emit), forward and backward launched once a step and no other kernel;
   4. render: the neuradar-synthetic model at full width with seeded random
      weights renders 2 camera frames at 720 x 1296, one 16,384-ray lidar scan
      and 4 radar scans (decoded in the model's 4 groups of 1 scan, the shape of
-     K2's render row); the launch counts show K1 and K2 ran on that path;
+     K2's render row); the launch counts show K1, K2 and K4 forward ran on
+     that path;
   5. train: the neuradar-synthetic trainer at its full width and batch
      (113,840 rays a step), seeded, runs 3 train steps and one eval-loss call;
-     each step prints its loss terms, wall time and peak memory; every
-     parameter group must have changed, and the launch counts must show all
-     four kernels on that path;
+     each step prints its loss terms; every parameter group must have
+     changed, and the launch counts must show K1, K2 and K4, forward and
+     backward, on that path;
   6. train_bf16: the JAX package's production program,
      configs/bench_program.bench_pipeline_config("full", chunks=8) (bf16
      compute, hoisted table cast, 8 recomputed chunks, radar in 4 groups; the
      bench scene of 24 frames at 96 x 156), trained by a Trainer for 3 steps
      of 113,840 rays, then an eval loss and a camera render, both with the
-     hoisted cast; step seconds, rays/s and peak memory, and K2 at bf16 must
-     have launched forward and backward; the render's launches are counted
-     apart (render_bf16);
+     hoisted cast; K1, K2 at bf16 and K4 must have launched forward and
+     backward; the render's launches are counted apart (render_bf16);
   6b. train_set: the set radar decoder (the paper's neuradar-set model
      settings: bf16, 8 chunks, the VGG loss, DETR's set loss, 300 queries
      with deep supervision, dropout 0.1, radar in 4 groups), configured as
@@ -96,12 +96,12 @@ Phases, one line each before the final JSON line:
      trained at the preset's full batch (113,840 rays, 16 radar scans of
      3,531 rays) for 3 steps with the auction and 1 with the host's
      Hungarian, then an eval loss, render_radar of one scan ([300, 7]) and
-     the eval radar metrics; each step's seconds, peak memory, loss terms
-     (radar_aux_loss among them) and Hungarian host time; every parameter
-     group, query_embed among them, must have changed, and K1 and K2 at
-     bf16 must have launched forward and backward; the render_radar's and the
-     eval radar metrics' launches are counted apart (render_radar_set,
-     eval_radar_set);
+     the eval radar metrics; each step's loss terms (radar_aux_loss among
+     them) and Hungarian calls (2 on the Hungarian step, none on the
+     others); every parameter group, query_embed among them, must have
+     changed, and K1, K2 at bf16 and K4 must have launched forward and
+     backward; the render_radar's and the eval radar metrics' launches are
+     counted apart (render_radar_set, eval_radar_set);
   6c. train_presets: the paper's presets of the port's registry, neuradar
      (bf16, 8 chunks, the VGG loss, camera optimizer off) and neurad (the SO3xR3
      camera optimizer on, no radar), each built as scripts/train.py builds it
@@ -110,12 +110,10 @@ Phases, one line each before the final JSON line:
      1418 after the hood crop; the images rendered coarse and repeated up to
      that size), 3 steps at the preset's full batch (113,840 and 57,344 rays);
      neuradar then takes an eval loss, renders an eval frame (1282 x 472 rays
-     at the x3 upsample) and a radar scan; step seconds, rays/s, peak memory,
-     the ray generation's device and call ms for the eval frame and for a
-     sampled batch's camera rays, and the card's name and power limit; after
-     the timed steps and the eval loss one more step, and with radar one more eval frame and
-     radar scan, give K4's rows on their own encodes, one a grid and path
-     (each path's encodes must all take the kernel, hash_encode_plain 0):
+     at the x3 upsample) and a radar scan; after the steps and the eval loss
+     one more step, and with radar one more eval frame and radar scan, give
+     K4's rows on their own encodes, one a grid and path (each path's encodes
+     must all take the kernel: one hash_encode_fwd launch an encode):
      forward rows (train, render, render_radar) bit-equal to the plain path,
      and backward rows (train) with the table's gradient against the float64
      sum of the plain path's corner gradients, the share of those that are
@@ -141,9 +139,9 @@ Phases, one line each before the final JSON line:
      camera, VoD's radar FoV of 100 x 44 = 4,400 rays a scan), 3 steps of
      127,744 rays, an eval loss, an eval frame (645 x 405 rays) and a radar
      scan, as train_presets runs neuradar; then compute_fid_metrics of 2
-     eval frames (8 renders each): every family finite, its seconds and its
-     K1 launches (fid_neuradar-vod); K1 and K2 at bf16 on the train path, no
-     float32 K2;
+     eval frames (8 renders each): every family finite, and its launches
+     (fid_neuradar-vod: K1 and K4 forward alone); K1, K2 at bf16 and K4 on the
+     train path, no float32 K2;
   7. agreement: a tiny scene rendered, and one tiny train step (loss terms and
      every gradient), through the kernels on the card against the plain
      versions on the CPU, with the same weights and the same random draws; and
@@ -162,8 +160,9 @@ Phases, one line each before the final JSON line:
      (all kept), then resumed from its checkpoints to step 8 (only the latest
      kept), then the eval command (scripts/eval.py) on the run; the events
      log must show each cadence at its steps, the checkpoints their steps,
-     every metric of the three families must be finite, and K1 and K2 must
-     have launched; the run's logs stay in chiprun_out/runs;
+     every metric of the three families must be finite, and K1, K2 and K4,
+     forward and backward, must have launched; the run's logs stay in
+     chiprun_out/runs;
   8b. cli_render: on that run, before its checkpoints are deleted, the render,
      export and texture commands, each through its main(argv) in this process:
      render.py dataset, lane-shift, actor-shift (an actor removed),
@@ -173,10 +172,10 @@ Phases, one line each before the final JSON line:
      at grid 128 and poisson-mesh at grid 64, texture.py on the sdf-mesh at 2
      cameras; then the closed-loop server on a free port of localhost (/info,
      /actors, an actor edit, a /render at 720 x 1296 that must return that
-     PNG) and the full-frame render_pose timed alone; each command's seconds
-     and output counts, every frame, scan, point cloud and mesh present and
-     finite; the launches (path render_cli) must show K1 and the float32 K2
-     forward and no other kernel; the outputs are deleted;
+     PNG) and the full-frame render_pose; each command's output counts,
+     every frame, scan, point cloud and mesh present and finite; the launches
+     (path render_cli) must show K1, K4 and the float32 K2 forward and no
+     other kernel; the outputs are deleted;
   9. learning: scripts/validate_learning.py at the tiny scale, 300 steps on
      the card, bf16 (the dtype of the JAX curve) and then float32, must print
      LEARNING CHECK: PASS; the first- and last-quarter means of both are
@@ -186,14 +185,17 @@ Phases, one line each before the final JSON line:
      --radar-assignment hungarian, each of which must PASS, the latter
      beside the first 300 steps of the JAX package's Hungarian curve
      (artifacts/curve_tiny_hungarian_2500.json).
-The line before the last lists every kernel as JSON; the last line is
-{"ok": true, "device": {...}}. Any failure raises, and the script exits
-non-zero without printing them.
+Launches are the trace counters launches/<symbol> that ops/build.check
+counts, one a launch of the extern "C" launcher <symbol>; each path reads its
+own from a trace.recording() window. End-to-end times are the benchmark's
+(benchmark/run.py); this script times the kernels alone. The line before the
+last lists every kernel as JSON, each path row with its path's launches of
+its launcher; the last line is {"ok": true, "device": {...}}. Any failure
+raises, and the script exits non-zero without printing them.
 """
 
 from __future__ import annotations
 
-import contextlib
 import gc
 import http.client
 import json
@@ -204,7 +206,6 @@ import struct
 import subprocess
 import sys
 import threading
-import time
 from dataclasses import replace
 from pathlib import Path
 
@@ -212,7 +213,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from neuradar_tpu_torch.cameras.cameras import CameraType, generate_camera_rays
+from neuradar_tpu_torch.cameras.cameras import CameraType
 from neuradar_tpu_torch.configs.bench_program import (
     ZOD_DIST,
     bench_pipeline_config,
@@ -222,7 +223,7 @@ from neuradar_tpu_torch.configs.bench_program import (
 )
 from neuradar_tpu_torch.configs.cli import parse_overrides
 from neuradar_tpu_torch.configs.method_configs import get_method, method_configs
-from neuradar_tpu_torch.data.datamanager import ADDataManagerConfig, batch_to_device
+from neuradar_tpu_torch.data.datamanager import ADDataManagerConfig
 from neuradar_tpu_torch.data.dataparsers.base import linspaced_split
 from neuradar_tpu_torch.data.dataparsers.synthetic import SyntheticDataParser, SyntheticDataParserConfig
 from neuradar_tpu_torch.engine.optimizers import default_optimizer_groups
@@ -237,8 +238,6 @@ from neuradar_tpu_torch.ops import build, gather, splat
 from neuradar_tpu_torch.ops.attention import (
     attention_bwd_reference,
     attention_reference,
-    self_attention_bf16_bwd,
-    self_attention_bf16_fwd,
     self_attention_bwd,
     self_attention_fwd,
 )
@@ -308,14 +307,14 @@ K2_BF16_DESIGN = ("bf16 wgmma on TMA tiles, 2 consumer warpgroups a block (the b
                   "split in two bf16 passes")
 K2_BF16_FWD_PASSES = 3
 K2_BF16_BWD_PASSES = 10
-# the kernels of the render and train paths (a render runs K1, K2 and K4 forward alone; the backwards
-# run in training); K3 (fused_composite) and P1 (row_gather) are on no path
-PATH_KERNELS = (composite_sky_fwd, composite_sky_bwd, self_attention_fwd, self_attention_bwd, hash_encode_fwd,
-                hash_encode_bwd)
+# the kernels of the render and train paths, by their launchers' names (a render runs K1, K2 and K4
+# forward alone; the backwards run in training); K3 (composite_fwd) and P1 (row_gather) are on no path
+PATH_KERNELS = {"composite_sky_fwd", "composite_sky_bwd", "self_attention_fwd", "self_attention_bwd",
+                "hash_encode_fwd", "hash_encode_bwd"}
 # the kernels of the bf16 train path: K1 takes float32 there too, K2 bf16
-BF16_PATH_KERNELS = (composite_sky_fwd, composite_sky_bwd, self_attention_bf16_fwd, self_attention_bf16_bwd,
-                     hash_encode_fwd, hash_encode_bwd)
-COUNTED_KERNELS = PATH_KERNELS + BF16_PATH_KERNELS[2:4]
+BF16_PATH_KERNELS = {"composite_sky_fwd", "composite_sky_bwd", "self_attention_bf16_fwd", "self_attention_bf16_bwd",
+                     "hash_encode_fwd", "hash_encode_bwd"}
+F32_K2 = {"self_attention_fwd", "self_attention_bwd"}
 # the bf16 train path: the JAX package's benchmark program, 8 chunks of 14,230 rays
 BF16_CHUNKS = 8
 # The full-width train step runs the per-ray core unchunked, as the preset does: it fits (51 GB
@@ -354,6 +353,30 @@ FID_FAMILIES = ("lane_shift_0", "lane_shift_2", "lane_shift_3", "vertical_shift_
 
 def phase(label: str, /, **fields) -> None:
     print(json.dumps({"phase": label, **fields}), flush=True)
+
+
+def _launches(snap: trace.Snapshot) -> dict:
+    """The hand-written kernels' launches in a trace window, by launcher (ops/build.check's
+    ``launches/<symbol>`` counters); a launcher that never launched is absent."""
+    launches = {}
+    for (name, _), n in snap.counters.items():
+        if name.startswith("launches/"):
+            symbol = name.removeprefix("launches/")
+            launches[symbol] = launches.get(symbol, 0) + n
+    return launches
+
+
+def _kernels(launches: dict) -> set:
+    """The kernels that launched, K1's backward by its name whichever of its two launchers ran."""
+    return {"composite_sky_bwd" if k == "composite_sky_bwd_general" else k for k, n in launches.items() if n > 0}
+
+
+def _symbol(row: dict) -> str:
+    """The launcher whose launches a kernel row reports: K1 backward's by the path it ran, K3's and the
+    binning's by their launchers' names, every other row's by its own name."""
+    if row["name"] == "composite_sky_bwd" and row["design"] == "general":
+        return "composite_sky_bwd_general"
+    return {"fused_composite": "composite_fwd", "splat_bin_sort": "splat_bin_count"}.get(row["name"], row["name"])
 
 
 def _times(kernel, plain, library=None, plain_syncs=False) -> dict:
@@ -446,8 +469,10 @@ def _bf16_path_rows(gen, device, path: str, model_config, num_scans: int, rate: 
     B, S, D = _group_scans(model_config, num_scans), rays_per_scan, 48
     bf = torch.bfloat16
     qb, kb, vb, dob = (torch.randn((B, S, D), generator=gen, device=device).to(bf) for _ in range(4))
-    out, lse, out32 = self_attention_fwd(qb, kb, vb, rate, seed, return_lse=True, return_out32=True)
-    _expect(out.dtype == bf and self_attention_bf16_fwd.launches > 0, f"K2 bf16 fwd {path}: not the bf16 kernel")
+    with trace.recording():
+        out, lse, out32 = self_attention_fwd(qb, kb, vb, rate, seed, return_lse=True, return_out32=True)
+        launches = _launches(trace.snapshot())
+    _expect(out.dtype == bf and launches == {"self_attention_bf16_fwd": 1}, f"K2 bf16 fwd {path}: launches {launches}")
     want32 = attention_reference(qb.float(), kb.float(), vb.float(), seed, rate)
     torch.testing.assert_close(out, want32.to(bf), **K2_BF16_TOL, msg=lambda m: f"K2 bf16 fwd: {m}")
     torch.testing.assert_close(out32, want32, **K2_OUT32_TOL, msg=lambda m: f"K2 bf16 fwd out32: {m}")
@@ -608,10 +633,10 @@ def check_kernels(device: torch.device) -> list:
         rows += _bf16_path_rows(gen, device, path, vm, 0, 0.0, seed, vm.eval_num_rays_per_chunk, backward=False)
     rows += _bf16_path_rows(gen, device, f"render_radar_{VOD_PRESET}", vm, 1, 0.0, seed, VOD_SCAN_RAYS,
                             backward=False, rays_per_scan=VOD_SCAN_RAYS)
-    launches = composite_sky_fwd.launches
-    rows += _bf16_path_rows(gen, device, "standalone", replace(vm, nff_chunks=1), 0, 0.0, seed, VOD_SCAN_RAYS,
-                            backward=False)
-    rows[-1]["launches"] = composite_sky_fwd.launches - launches
+    with trace.recording():
+        rows += _bf16_path_rows(gen, device, "standalone", replace(vm, nff_chunks=1), 0, 0.0, seed, VOD_SCAN_RAYS,
+                                backward=False)
+        rows[-1]["launches"] = _launches(trace.snapshot())["composite_sky_fwd"]
     # the renders of the bf16 program's and the set model's phases: the bench frame (96 x 156 at the x3
     # upsample, one render chunk in 8 nff chunks); one radar scan of the set model (its 3,531 rays in one
     # chunk, one decode group) and its eval radar metrics' batch of the eval scans (one chunk; a decode
@@ -627,18 +652,19 @@ def check_kernels(device: torch.device) -> list:
 
     # K3 at a render chunk's shape with sample midpoints, against its plain version in float64 (as K1)
     R, S, C = 32768, 33, 32
-    fused_composite.launches = 0
     alpha = torch.rand((R, S), generator=gen, device=device)
     feats = torch.randn((R, S, C), generator=gen, device=device)
     steps = torch.cumsum(torch.rand((R, S), generator=gen, device=device), dim=-1)
-    got = [t.double() for t in fused_composite(alpha, feats, steps)]
-    want = composite_reference(alpha.double(), feats.double(), steps.double())
-    _assert_all_close(got, want, K1_TOL, "K3")
-    rows.append({"name": "fused_composite", **k1, "replaces": "neuradar_tpu/ops/volumetric.py:199",
-                 "path": "standalone", "shape": [R, S, C], "max_abs_err": _max_err(got, want),
-                 **_times(lambda: fused_composite(alpha, feats, steps), lambda: composite_reference(alpha, feats, steps)),
-                 **_bound(4 * (R * S * (C + 3) + R * (C + 2)), R * S * (2 * C + 6))})
-    rows[-1]["launches"] = fused_composite.launches
+    with trace.recording():
+        got = [t.double() for t in fused_composite(alpha, feats, steps)]
+        want = composite_reference(alpha.double(), feats.double(), steps.double())
+        _assert_all_close(got, want, K1_TOL, "K3")
+        rows.append({"name": "fused_composite", **k1, "replaces": "neuradar_tpu/ops/volumetric.py:199",
+                     "path": "standalone", "shape": [R, S, C], "max_abs_err": _max_err(got, want),
+                     **_times(lambda: fused_composite(alpha, feats, steps),
+                              lambda: composite_reference(alpha, feats, steps)),
+                     **_bound(4 * (R * S * (C + 3) + R * (C + 2)), R * S * (2 * C + 6))})
+        rows[-1]["launches"] = _launches(trace.snapshot())["composite_fwd"]
 
     # P1 at the probe's shape, at one static hash grid's table (8 x 2^22 rows of 4 features, 512 MiB)
     # and at a proposal grid's (6 x 2^20 rows of 1 feature, the scalar path), each with 2^22 random
@@ -647,35 +673,28 @@ def check_kernels(device: torch.device) -> list:
     # kernel's path.
     p1 = {"route": "cuda", "source": "neuradar_tpu_torch/csrc/gather.cu"}
     for T, n_feat, N in ((4096, 8, 1024), (8 * 2**22, 4, 2**22), (6 * 2**20, 1, 2**22)):
-        gather.row_gather.launches = 0
         table = torch.randn((T, n_feat), generator=gen, device=device)
         idx = torch.randint(0, T, (N,), generator=gen, device=device, dtype=torch.int32)
-        got, want = gather.row_gather(table, idx), gather.row_gather_reference(table, idx)
-        gather.check_indices(device)
-        _expect(torch.equal(got, want), f"P1 [{T}, {n_feat}] x {N}: the gather differs from its plain version")
-        rows.append({"name": "row_gather", **p1, "replaces": "tools/probe_mosaic_gather.py:34",
-                     "path": "standalone", "shape": [T, n_feat, N], "design": gather.row_gather_path(table),
-                     "max_abs_err": float((got - want).abs().max()),
-                     **_times(lambda: gather.row_gather(table, idx), lambda: gather.row_gather_reference(table, idx),
-                              lambda: torch.index_select(table, 0, idx)),
-                     "sector_bound_ms": bounds_ms(n_feat, N)["sector_bound_ms"],
-                     **_bound(N * (2 * n_feat * 4 + 4), 0)})
-        gather.check_indices(device)
-        rows[-1]["launches"] = gather.row_gather.launches
+        with trace.recording():
+            got, want = gather.row_gather(table, idx), gather.row_gather_reference(table, idx)
+            gather.check_indices(device)
+            _expect(torch.equal(got, want), f"P1 [{T}, {n_feat}] x {N}: the gather differs from its plain version")
+            rows.append({"name": "row_gather", **p1, "replaces": "tools/probe_mosaic_gather.py:34",
+                         "path": "standalone", "shape": [T, n_feat, N], "design": gather.row_gather_path(table),
+                         "max_abs_err": float((got - want).abs().max()),
+                         **_times(lambda: gather.row_gather(table, idx),
+                                  lambda: gather.row_gather_reference(table, idx),
+                                  lambda: torch.index_select(table, 0, idx)),
+                         "sector_bound_ms": bounds_ms(n_feat, N)["sector_bound_ms"],
+                         **_bound(N * (2 * n_feat * 4 + 4), 0)})
+            gather.check_indices(device)
+            rows[-1]["launches"] = _launches(trace.snapshot())["row_gather"]
         del table, idx, got, want
     return rows
 
 
 def _finite(x: torch.Tensor) -> bool:
     return bool(torch.isfinite(x).all())
-
-
-def _timed(fn):
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    out = fn()
-    torch.cuda.synchronize()
-    return out, time.perf_counter() - t0
 
 
 def _expect(ok: bool, what: str) -> None:
@@ -685,36 +704,32 @@ def _expect(ok: bool, what: str) -> None:
 
 def render_full_width(device: torch.device) -> None:
     """The main path: full-width neuradar-synthetic, seeded random weights."""
-    t0 = time.perf_counter()
     out = SyntheticDataParser(SyntheticDataParserConfig(
         num_frames=4, image_height=720, image_width=1296, lidar_points_per_scan=16384, seed=0,
     )).get_dataparser_outputs()
     pipe = ADNeuRadarPipeline(ADNeuRadarPipelineConfig(), out, device, seed=0)
-    torch.cuda.synchronize()
     n_params = sum(p.numel() for p in pipe.model.parameters())
-    phase("render_setup", seconds=time.perf_counter() - t0, n_params=n_params,
-          rays_per_radar_scan=pipe.tables.radars.rays_per_scan)
+    phase("render_setup", n_params=n_params, rays_per_radar_scan=pipe.tables.radars.rays_per_scan)
 
     # the 4-frame scene's eval split is frame 0 alone; frame 3 is the second render
     for cam_idx in (0, 3):
-        rend, dt = _timed(lambda: pipe.render_camera(cam_idx))
+        rend = pipe.render_camera(cam_idx)
         shapes = {k: list(v.shape) for k, v in rend.items()}
         finite = all(_finite(v) for v in rend.values())
-        phase("render_camera", cam_idx=cam_idx, shapes=shapes, finite=finite, seconds=dt,
-              rays=int(rend["depth"].numel()))
+        phase("render_camera", cam_idx=cam_idx, shapes=shapes, finite=finite, rays=int(rend["depth"].numel()))
         _expect(finite and shapes["rgb"] == [720, 1296, 3] and shapes["depth"] == [240, 432],
                 f"render_camera {cam_idx}: {shapes}, finite={finite}")
 
-    rend, dt = _timed(lambda: pipe.render_lidar(0, max_points=16384))
+    rend = pipe.render_lidar(0, max_points=16384)
     shapes = {k: list(rend[k].shape) for k in ("depth", "intensity", "ray_drop_prob")}
     finite = all(_finite(rend[k]) for k in shapes)
-    phase("render_lidar", shapes=shapes, finite=finite, seconds=dt, num_valid=rend["num_valid"])
+    phase("render_lidar", shapes=shapes, finite=finite, num_valid=rend["num_valid"])
     _expect(finite and all(s == [16384, 1] for s in shapes.values()), f"render_lidar: {shapes}, finite={finite}")
 
-    rend, dt = _timed(lambda: pipe.render_radar(list(RENDER_RADAR_SCANS)))
+    rend = pipe.render_radar(list(RENDER_RADAR_SCANS))
     ro = rend["radar_output"]
     finite = _finite(ro)
-    phase("render_radar", shape=list(ro.shape), finite=finite, seconds=dt)
+    phase("render_radar", shape=list(ro.shape), finite=finite)
     _expect(finite and list(ro.shape) == [len(RENDER_RADAR_SCANS), pipe.tables.radars.rays_per_scan, 7],
             f"render_radar: {list(ro.shape)}, finite={finite}")
     del pipe
@@ -731,32 +746,27 @@ def _param_groups(trainer: Trainer) -> dict:
 def train_full_width(device: torch.device) -> None:
     """This slice's path: the neuradar-synthetic trainer at full width and batch, seeded."""
     torch.cuda.empty_cache()
-    t0 = time.perf_counter()
     cfg = method_configs["neuradar-synthetic"]()
     cfg.pipeline.model.nff_chunks = NFF_CHUNKS
     trainer = Trainer(cfg, cfg.dataparser.setup().get_dataparser_outputs(), device)
     trainer.setup()
     layout = trainer.pipeline.layout
-    torch.cuda.synchronize()
-    phase("train_setup", seconds=time.perf_counter() - t0, seed=cfg.seed,
+    phase("train_setup", seed=cfg.seed,
           n_params=sum(p.numel() for p in trainer.model.parameters()), rays_per_step=layout.total,
           camera_rays=layout.num_cam, lidar_rays=layout.num_lidar, radar_scans=layout.num_radar_scans,
           rays_per_radar_scan=layout.rays_per_scan, nff_chunks=NFF_CHUNKS)
     groups = _param_groups(trainer)
     before = {g: [p.detach().clone() for p in ps] for g, ps in groups.items()}
     for step in range(TRAIN_STEPS):
-        torch.cuda.reset_peak_memory_stats()
-        (losses, metrics), dt = _timed(trainer.train_step)
+        losses, metrics = trainer.train_step()
         values = {k: float(v) for k, v in losses.items()}
         finite = all(torch.isfinite(torch.tensor(v)) for v in values.values())
-        phase("train_step", step=step, seconds=dt, rays_per_s=layout.total / dt, finite=finite,
-              peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30, losses=values,
-              metrics={k: float(v) for k, v in metrics.items()})
+        phase("train_step", step=step, finite=finite, losses=values, metrics={k: float(v) for k, v in metrics.items()})
         _expect(finite, f"train step {step}: a loss term is not finite: {values}")
-    (losses, metrics), dt = _timed(trainer.eval_loss)
+    losses, metrics = trainer.eval_loss()
     values = {k: float(v) for k, v in losses.items()}
     finite = all(torch.isfinite(torch.tensor(v)) for v in values.values())
-    phase("eval_loss", seconds=dt, finite=finite, losses=values, metrics={k: float(v) for k, v in metrics.items()})
+    phase("eval_loss", finite=finite, losses=values, metrics={k: float(v) for k, v in metrics.items()})
     _expect(finite, f"eval loss not finite: {values}")
     changed = {g: any(not torch.equal(p, q) for p, q in zip(groups[g], before[g])) for g in groups}
     phase("train_params_changed", groups=changed)
@@ -772,7 +782,6 @@ def train_bf16(device: torch.device) -> dict:
     launches are counted apart for the steps with the eval loss (train_bf16) and the render
     (render_bf16)."""
     torch.cuda.empty_cache()
-    t0 = time.perf_counter()
     cfg = TrainerConfig(pipeline=bench_pipeline_config("full", chunks=BF16_CHUNKS),
                         optimizers=default_optimizer_groups(2001),
                         steps_per_eval_batch=0, steps_per_eval_image=0, steps_per_eval_all_images=0,
@@ -782,41 +791,34 @@ def train_bf16(device: torch.device) -> dict:
     trainer.setup()
     layout = trainer.pipeline.layout
     m = cfg.pipeline.model
-    torch.cuda.synchronize()
-    phase("train_bf16_setup", seconds=time.perf_counter() - t0, seed=cfg.seed, compute_dtype=m.compute_dtype,
-          hoist_table_cast=m.hoist_table_cast, nff_chunks=m.nff_chunks, radar_decode_chunks=m.radar_decode_chunks,
-          vgg_mult=m.loss.vgg_mult, rays_per_step=layout.total, camera_rays=layout.num_cam, lidar_rays=layout.num_lidar,
+    phase("train_bf16_setup", seed=cfg.seed, compute_dtype=m.compute_dtype, hoist_table_cast=m.hoist_table_cast,
+          nff_chunks=m.nff_chunks, radar_decode_chunks=m.radar_decode_chunks, vgg_mult=m.loss.vgg_mult,
+          rays_per_step=layout.total, camera_rays=layout.num_cam, lidar_rays=layout.num_lidar,
           radar_scans=layout.num_radar_scans, rays_per_radar_scan=layout.rays_per_scan)
     _expect(layout.total == 113840 and m.compute_dtype == "bfloat16",
             f"bf16 program: {layout.total} rays, {m.compute_dtype}")
-    steps = []
-    for step in range(TRAIN_STEPS):
-        torch.cuda.reset_peak_memory_stats()
-        (losses, metrics), dt = _timed(trainer.train_step)
+    with trace.recording():
+        for step in range(TRAIN_STEPS):
+            losses, metrics = trainer.train_step()
+            values = {k: float(v) for k, v in losses.items()}
+            finite = all(math.isfinite(v) for v in values.values())
+            phase("train_bf16_step", step=step, finite=finite, losses=values,
+                  metrics={k: float(v) for k, v in metrics.items()})
+            _expect(finite, f"bf16 train step {step}: a loss term is not finite: {values}")
+        losses, metrics = trainer.eval_loss()
         values = {k: float(v) for k, v in losses.items()}
-        finite = all(math.isfinite(v) for v in values.values())
-        steps.append({"step": step, "seconds": dt, "rays_per_s": layout.total / dt,
-                      "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30})
-        phase("train_bf16_step", **steps[-1], finite=finite, losses=values,
-              metrics={k: float(v) for k, v in metrics.items()})
-        _expect(finite, f"bf16 train step {step}: a loss term is not finite: {values}")
-    (losses, metrics), dt = _timed(trainer.eval_loss)
-    values = {k: float(v) for k, v in losses.items()}
-    _expect(all(math.isfinite(v) for v in values.values()), f"bf16 eval loss not finite: {values}")
-    launches = {"train_bf16": _counts()}
-    _zero_counts()
-    rend, render_s = _timed(lambda: trainer.pipeline.render_camera(0))
-    launches["render_bf16"] = _counts()
+        _expect(all(math.isfinite(v) for v in values.values()), f"bf16 eval loss not finite: {values}")
+        launches = {"train_bf16": _launches(trace.snapshot())}
+    with trace.recording():
+        rend = trainer.pipeline.render_camera(0)
+        launches["render_bf16"] = _launches(trace.snapshot())
     shapes = {k: list(v.shape) for k, v in rend.items()}
     _expect(all(_finite(v) for v in rend.values()) and shapes["rgb"] == [96, 156, 3],
             f"bf16 render_camera: {shapes}")
     trainer.shutdown()
     del trainer
     torch.cuda.empty_cache()
-    median = sorted(st["seconds"] for st in steps)[len(steps) // 2]
-    return {"steps": steps, "median_step_s": median, "rays_per_s_median": layout.total / median,
-            "peak_mem_gb": max(st["peak_mem_gb"] for st in steps), "launches": launches,
-            "eval_loss": {"seconds": dt, "losses": values}, "render_camera": {"seconds": render_s, "shapes": shapes}}
+    return {"launches": launches, "eval_loss": {"losses": values}, "render_camera": {"shapes": shapes}}
 
 
 def _set_config() -> TrainerConfig:
@@ -837,7 +839,6 @@ def train_set(device: torch.device) -> dict:
     the eval radar metrics. The kernels' launches are counted apart for the steps with the eval loss
     (train_set), the scan's render (render_radar_set) and the metrics' render (eval_radar_set)."""
     torch.cuda.empty_cache()
-    t0 = time.perf_counter()
     cfg = _set_config()
     cfg.steps_per_eval_batch = cfg.steps_per_eval_image = cfg.steps_per_eval_all_images = 0
     cfg.steps_per_eval_all_radars = cfg.steps_per_save = 0
@@ -847,8 +848,7 @@ def train_set(device: torch.device) -> dict:
     trainer.setup()
     layout = trainer.pipeline.layout
     m = cfg.pipeline.model
-    torch.cuda.synchronize()
-    phase("train_set_setup", seconds=time.perf_counter() - t0, seed=cfg.seed, overrides=SET_ARGV,
+    phase("train_set_setup", seed=cfg.seed, overrides=SET_ARGV,
           rays_per_step=layout.total, camera_rays=layout.num_cam, lidar_rays=layout.num_lidar,
           radar_scans=layout.num_radar_scans, rays_per_radar_scan=layout.rays_per_scan,
           radar_decode_groups=radar_decode_groups(layout.num_radar_scans, m.radar_decode_chunks))
@@ -860,41 +860,32 @@ def train_set(device: torch.device) -> dict:
     before = {g: [p.detach().clone() for p in ps] for g, ps in groups.items()}
     query_embed = trainer.model.radar_decoder.query_embed
     query_before = query_embed.detach().clone()
-    hungarian = radar_utils.hungarian_assignment
-    # one call first, so that scipy's import is not timed as the Hungarian step's host work
-    hungarian(torch.zeros((1, 1, 1), device=device), torch.ones((1, 1), dtype=torch.bool, device=device))
-    steps = []
-    for step in range(SET_AUCTION_STEPS + 1):
-        m.loss.radar_assignment = "auction" if step < SET_AUCTION_STEPS else "hungarian"
-        torch.cuda.reset_peak_memory_stats()
-        with trace.recording():
-            (losses, metrics), dt = _timed(trainer.train_step)
-            snap = trace.snapshot()
-        values = {k: float(v) for k, v in losses.items()}
-        steps.append({"step": step, "assignment": m.loss.radar_assignment, "seconds": dt,
-                      "rays_per_s": layout.total / dt, "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30,
-                      "hungarian_calls": snap.total("hungarian_calls"),
-                      "hungarian_sync_ms": sum(s.host_ms for s in snap.spans if s.name == "host_sync/hungarian"),
-                      "hungarian_solve_ms": sum(s.host_ms for s in snap.spans if s.name == "hungarian/solve")})
-        phase("train_set_step", **steps[-1], finite=_finite_dict(values), losses=values,
-              metrics={k: float(v) for k, v in metrics.items()})
-        _expect(_finite_dict(values) and "radar_aux_loss" in values, f"set train step {step}: {values}")
+    assignments = ["auction"] * SET_AUCTION_STEPS + ["hungarian"]
+    with trace.recording():
+        for step, assignment in enumerate(assignments):
+            m.loss.radar_assignment = assignment
+            losses, metrics = trainer.train_step()
+            values = {k: float(v) for k, v in losses.items()}
+            phase("train_set_step", step=step, assignment=assignment, finite=_finite_dict(values), losses=values,
+                  metrics={k: float(v) for k, v in metrics.items()})
+            _expect(_finite_dict(values) and "radar_aux_loss" in values, f"set train step {step}: {values}")
+        losses, metrics = trainer.eval_loss()
+        eval_values = {k: float(v) for k, v in losses.items()}
+        _expect(_finite_dict(eval_values), f"set eval loss not finite: {eval_values}")
+        snap = trace.snapshot()
+    launches = {"train_set": _launches(snap)}
     # the Hungarian step: the main loss and the one intermediate layer's, one host round trip each
-    _expect(steps[-1]["hungarian_calls"] == 2 and all(st["hungarian_calls"] == 0 for st in steps[:-1]),
-            f"Hungarian calls per step: {[st['hungarian_calls'] for st in steps]}")
-    (losses, metrics), eval_s = _timed(trainer.eval_loss)
-    eval_values = {k: float(v) for k, v in losses.items()}
-    _expect(_finite_dict(eval_values), f"set eval loss not finite: {eval_values}")
-    launches = {"train_set": _counts()}
+    calls = [snap.count("hungarian_calls", [unit]) for unit in snap.units("train/step")]
+    _expect(calls == [0] * SET_AUCTION_STEPS + [2], f"Hungarian calls per step: {calls}")
     scan = int(trainer.pipeline.datamanager.eval_radar_indices()[0])
-    _zero_counts()
-    rend, render_s = _timed(lambda: trainer.pipeline.render_radar(scan))
-    launches["render_radar_set"] = _counts()
+    with trace.recording():
+        rend = trainer.pipeline.render_radar(scan)
+        launches["render_radar_set"] = _launches(trace.snapshot())
     ro = rend["radar_output"]
     _expect(list(ro.shape) == [300, 7] and _finite(ro), f"set render_radar: {list(ro.shape)}")
-    _zero_counts()
-    radar_metrics, metrics_s = _timed(trainer.pipeline.get_average_eval_radar_metrics)
-    launches["eval_radar_set"] = _counts()
+    with trace.recording():
+        radar_metrics = trainer.pipeline.get_average_eval_radar_metrics()
+        launches["eval_radar_set"] = _launches(trace.snapshot())
     _expect(_finite_dict(radar_metrics), f"set eval radar metrics: {radar_metrics}")
     changed = {g: any(not torch.equal(p, q) for p, q in zip(groups[g], before[g])) for g in groups}
     changed["query_embed"] = not torch.equal(query_embed.detach(), query_before)
@@ -904,25 +895,8 @@ def train_set(device: torch.device) -> dict:
     trainer.shutdown()
     del trainer, before, groups
     torch.cuda.empty_cache()
-    auction = sorted(st["seconds"] for st in steps[:SET_AUCTION_STEPS])
-    return {"steps": steps, "median_step_s_auction": auction[len(auction) // 2],
-            "hungarian_step_s": steps[-1]["seconds"], "peak_mem_gb": max(st["peak_mem_gb"] for st in steps),
-            "hungarian_host_ms_per_step": steps[-1]["hungarian_sync_ms"] + steps[-1]["hungarian_solve_ms"],
-            "launches": launches,
-            "eval_loss": {"seconds": eval_s, "losses": eval_values},
-            "render_radar": {"seconds": render_s, "shape": list(ro.shape)},
-            "eval_radar_metrics": {"seconds": metrics_s, **radar_metrics}}
-
-
-def _ray_generation(cameras, ids: torch.Tensor, coords: torch.Tensor) -> dict:
-    """generate_camera_rays for the pixels ``coords`` of the cameras ``ids``: the device time of its
-    kernels (it launches hundreds of small ones a call, so the profiler's kernel sum, not a queue
-    behind a spin) and one call's time with its host work."""
-
-    def gen():
-        return generate_camera_rays(cameras, ids, coords)
-
-    return {"rays": int(coords.shape[0]), "device_ms": kernels_ms(gen), "call_ms": call_ms(gen, reps=5)}
+    return {"hungarian_calls": calls, "launches": launches, "eval_loss": {"losses": eval_values},
+            "render_radar": {"shape": list(ro.shape)}, "eval_radar_metrics": radar_metrics}
 
 
 def _index_add_scatter(grads, idxs, table_shape) -> torch.Tensor:
@@ -943,7 +917,7 @@ def _k4_capture(fn) -> tuple:
     """Run ``fn`` with the encode's op wrapped and the port's counters recording. Per grid (d, L, T, F):
     the first encode's inputs, and the first encode with a gradient's inputs with its output's gradient
     (a hook; a recomputed chunk's gradient reaches the first forward's output). Returns both and the
-    counts of encodes that took the kernel and the plain path, and of host syncs."""
+    counts of encodes (``hash_encode`` spans), of the forward kernel's launches and of host syncs."""
     fwd, bwd = {}, {}
     op = hash_encode_op.hash_encode
 
@@ -969,7 +943,8 @@ def _k4_capture(fn) -> tuple:
             snap = trace.snapshot()
     finally:
         hash_encode_op.hash_encode = op
-    return fwd, bwd, {k: snap.total(k) for k in ("hash_encode_kernel", "hash_encode_plain", "host_syncs")}
+    return fwd, bwd, {"encodes": sum(s.name == "hash_encode" for s in snap.spans),
+                      "hash_encode_fwd": snap.total("launches/hash_encode_fwd"), "host_syncs": snap.total("host_syncs")}
 
 
 def _k4_grid(cap) -> str:
@@ -992,7 +967,6 @@ def _k4_fwd_row(cap: dict, path: str) -> dict:
     path's."""
     pos, table, scal, T, L, F = (cap[k] for k in ("positions", "table", "scalings", "T", "L", "F"))
     (N, d), R = pos.shape, table.dtype
-    launches = hash_encode_fwd.launches  # the checks' and timings' launches are not the path's
 
     def plain():
         return encodings.hash_encode(pos.to(R), table, scal, T, L, F).to(pos.dtype)
@@ -1005,7 +979,6 @@ def _k4_fwd_row(cap: dict, path: str) -> dict:
                **_times(lambda: hash_encode_fwd(pos, table, scal, T, L, F), plain, plain_syncs=True),
                **_bound(N * d * pos.element_size() + N * L * F * pos.element_size()
                         + _k4_lookup_bytes(pos, table, scal, T, L, F), N * L * 2**d * (d - 1 + 2 * F))}
-    hash_encode_fwd.launches = launches
     return row
 
 
@@ -1020,7 +993,6 @@ def _k4_bwd_row(cap: dict, path: str) -> dict:
     pos, table, scal, T, L, F = (cap[k] for k in ("positions", "table", "scalings", "T", "L", "F"))
     grad_out, pos_grad, table_grad = cap["grad_out"].contiguous(), cap["pos_grad"], cap["table_grad"]
     (N, d), R = pos.shape, table.dtype
-    launches = hash_encode_bwd.launches
 
     def kernel():
         return hash_encode_bwd(grad_out, pos, table, scal, T, L, F, pos_grad, table_grad)
@@ -1060,16 +1032,15 @@ def _k4_bwd_row(cap: dict, path: str) -> dict:
                         (lambda: _index_add_scatter(grads, idxs, (L * T, F))) if table_grad else None,
                         plain_syncs=True),
                **_bound(nbytes, N * L * 2**d * (2 * F + (d * d + F if pos_grad else 0))))
-    hash_encode_bwd.launches = launches
     return row
 
 
 def _k4_rows(trainer: Trainer, name: str) -> list:
     """K4's rows on the preset's own encodes, one a grid and path: one more train step (path
     train_<name>: forward and backward rows), and with radar an eval frame (render_<name>) and a radar
-    scan (render_radar_<name>), forward rows. Every encode of each must take the kernel
-    (``hash_encode_plain`` 0). With the camera optimizer on, the static grid's positions need a gradient
-    on the train path, and its row must check it on a gradient that is not all zeros."""
+    scan (render_radar_<name>), forward rows. Every encode of each must take the kernel (one
+    ``hash_encode_fwd`` launch an encode). With the camera optimizer on, the static grid's positions
+    need a gradient on the train path, and its row must check it on a gradient that is not all zeros."""
     pipe = trainer.pipeline
     runs = [(f"train_{name}", trainer.train_step)]
     if pipe.layout.num_radar_scans > 0:
@@ -1081,8 +1052,7 @@ def _k4_rows(trainer: Trainer, name: str) -> list:
     for path, fn in runs:
         fwd, bwd, counts = _k4_capture(fn)
         phase("k4_encodes", path=path, **counts)
-        _expect(counts["hash_encode_plain"] == 0 and counts["hash_encode_kernel"] > 0,
-                f"{path}: an encode took the plain path: {counts}")
+        _expect(counts["hash_encode_fwd"] == counts["encodes"] > 0, f"{path}: an encode launched no kernel: {counts}")
         rows += [_k4_fwd_row(cap, path) for cap in fwd.values()]
         rows += [_k4_bwd_row(cap, path) for cap in bwd.values()]
         del fwd, bwd
@@ -1094,27 +1064,17 @@ def _k4_rows(trainer: Trainer, name: str) -> list:
     return rows
 
 
-def _zero_counts() -> None:
-    for k in COUNTED_KERNELS:
-        k.launches = 0
-
-
-def _counts() -> dict:
-    return {k.__name__: k.launches for k in COUNTED_KERNELS}
-
-
 def train_preset(device: torch.device, name: str, scene, fid_frames: int = 0) -> dict:
     """The preset ``name`` of the port's registry, built as scripts/train.py builds it and trained by a
     Trainer on ``scene`` (explicit dataparser outputs) for PRESET_STEPS steps at its full width and
     batch; a preset with radar scans then takes an eval loss, renders an eval frame through
-    render_camera and one radar scan. Step seconds, rays/s, peak memory and the loss terms; with the
-    camera optimizer on, its group must have changed and its regularizer be finite. With
-    ``fid_frames`` the trainer's pipeline then computes the shifted-view FIDs of that many eval frames
-    (compute_fid_metrics): every family's value must be finite. The kernels' launches are counted
-    apart for the train steps with the eval loss (path train_<name>, the train batch's shapes), the
-    eval frame (render_<name>), the radar scan (render_radar_<name>) and the FIDs (fid_<name>)."""
+    render_camera and one radar scan. The loss terms; with the camera optimizer on, its group must have
+    changed and its regularizer be finite. With ``fid_frames`` the trainer's pipeline then computes the
+    shifted-view FIDs of that many eval frames (compute_fid_metrics): every family's value must be
+    finite. The kernels' launches are counted apart for the train steps with the eval loss (path
+    train_<name>, the train batch's shapes), the eval frame (render_<name>), the radar scan
+    (render_radar_<name>) and the FIDs (fid_<name>)."""
     torch.cuda.empty_cache()
-    t0 = time.perf_counter()
     cfg = get_method(name)
     cfg.steps_per_eval_batch = cfg.steps_per_eval_image = cfg.steps_per_eval_all_images = 0
     cfg.steps_per_eval_all_radars = cfg.steps_per_save = 0
@@ -1124,91 +1084,67 @@ def train_preset(device: torch.device, name: str, scene, fid_frames: int = 0) ->
     trainer.setup()
     layout = trainer.pipeline.layout
     m = cfg.pipeline.model
-    torch.cuda.synchronize()
-    setup = {"seconds": time.perf_counter() - t0, "rays_per_step": layout.total, "camera_rays": layout.num_cam,
-             "lidar_rays": layout.num_lidar, "radar_scans": layout.num_radar_scans, "compute_dtype": m.compute_dtype,
-             "nff_chunks": m.nff_chunks, "vgg_mult": m.loss.vgg_mult, "camera_optimizer": m.camera_optimizer.mode,
-             "image_size": list(scene.image_size), "camera_types": torch.unique(trainer.pipeline.tables.cameras.camera_type).tolist()}
+    setup = {"rays_per_step": layout.total, "camera_rays": layout.num_cam, "lidar_rays": layout.num_lidar,
+             "radar_scans": layout.num_radar_scans, "compute_dtype": m.compute_dtype, "nff_chunks": m.nff_chunks,
+             "vgg_mult": m.loss.vgg_mult, "camera_optimizer": m.camera_optimizer.mode,
+             "image_size": list(scene.image_size),
+             "camera_types": torch.unique(trainer.pipeline.tables.cameras.camera_type).tolist()}
     phase(f"train_{name}_setup", **setup)
     groups = _param_groups(trainer)
     before = {g: [p.detach().clone() for p in ps] for g, ps in groups.items()}
-    steps = []
-    _zero_counts()
-    for step in range(PRESET_STEPS):
-        torch.cuda.reset_peak_memory_stats()
-        (losses, metrics), dt = _timed(trainer.train_step)
-        values = {k: float(v) for k, v in losses.items()}
-        steps.append({"step": step, "seconds": dt, "rays_per_s": layout.total / dt,
-                      "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30})
-        phase(f"train_{name}_step", **steps[-1], finite=_finite_dict(values), losses=values,
-              metrics={k: float(v) for k, v in metrics.items()})
-        _expect(_finite_dict(values), f"{name} train step {step}: a loss term is not finite: {values}")
-        _expect(("camera_opt_regularizer" in values) == (m.camera_optimizer.mode != "off"),
-                f"{name}: camera_opt_regularizer {sorted(values)}")
-    eval_report = {}
+    report = {"setup": setup}
     radar = layout.num_radar_scans > 0
-    if radar:
-        (losses, _), eval_s = _timed(trainer.eval_loss)
-        eval_values = {k: float(v) for k, v in losses.items()}
-        _expect(_finite_dict(eval_values), f"{name} eval loss not finite: {eval_values}")
-        eval_report["eval_loss"] = {"seconds": eval_s, "losses": eval_values}
-    launches = {f"train_{name}": _counts()}
-    # after the path's count: K4's extra step and renders are not the path's launches
-    eval_report["k4"] = _k4_rows(trainer, name)
-    phase(f"train_{name}_k4", rows=eval_report["k4"])
+    with trace.recording():
+        for step in range(PRESET_STEPS):
+            losses, metrics = trainer.train_step()
+            values = {k: float(v) for k, v in losses.items()}
+            phase(f"train_{name}_step", step=step, finite=_finite_dict(values), losses=values,
+                  metrics={k: float(v) for k, v in metrics.items()})
+            _expect(_finite_dict(values), f"{name} train step {step}: a loss term is not finite: {values}")
+            _expect(("camera_opt_regularizer" in values) == (m.camera_optimizer.mode != "off"),
+                    f"{name}: camera_opt_regularizer {sorted(values)}")
+        if radar:
+            losses, _ = trainer.eval_loss()
+            eval_values = {k: float(v) for k, v in losses.items()}
+            _expect(_finite_dict(eval_values), f"{name} eval loss not finite: {eval_values}")
+            report["eval_loss"] = {"losses": eval_values}
+        launches = {f"train_{name}": _launches(trace.snapshot())}
+    # after the path's window: K4's extra step and renders are not the path's launches
+    report["k4"] = _k4_rows(trainer, name)
+    phase(f"train_{name}_k4", rows=report["k4"])
     changed = {g: any(not torch.equal(p, q) for p, q in zip(groups[g], before[g])) for g in groups}
     phase(f"train_{name}_params_changed", groups=changed)
     if m.camera_optimizer.mode != "off":
         _expect(changed.get("camera_opt", False), f"{name}: the camera_opt group did not change: {changed}")
-    median = sorted(st["seconds"] for st in steps)[len(steps) // 2]
-    report = {"setup": setup, "steps": steps, "median_step_s": median, "rays_per_s_median": layout.total / median,
-              "peak_mem_gb": max(st["peak_mem_gb"] for st in steps), "params_changed": changed, **eval_report}
+    report["params_changed"] = changed
     pipe = trainer.pipeline
-    cams = pipe.tables.cameras
-    # ray generation through the fisheye's Newton undistortion: a sampled batch's camera rays (the
-    # preset's patches at the train batch's layout, one ray a u x u block, as build_train_bundle
-    # places them; the eval split, so that the train sampler's draws stay as they were) and an eval
-    # frame's rays (one a u x u block)
     u = m.rgb_upsample_factor
     H, W = scene.image_size
-    rr, cc = torch.meshgrid(torch.arange(H // u, device=device) * u + u // 2,
-                            torch.arange(W // u, device=device) * u + u // 2, indexing="ij")
-    frame = torch.stack([rr.reshape(-1), cc.reshape(-1)], dim=1)
-    batch = batch_to_device(pipe.datamanager.sample_eval_batch(), device)
-    ps = layout.patch_size[0]
-    grid = torch.arange(ps, device=device) * u + u // 2
-    gr, gc = torch.meshgrid(grid, grid, indexing="ij")
-    patch = (batch["patch_tl"][:, None, :].long() + torch.stack([gr.reshape(-1), gc.reshape(-1)], -1)[None])
-    report["ray_generation"] = {
-        "eval_frame": _ray_generation(cams, torch.zeros(len(frame), dtype=torch.long, device=device), frame),
-        "batch_camera_rays": _ray_generation(cams, torch.repeat_interleave(batch["cam_frame_idx"].long(), ps * ps),
-                                             patch.reshape(-1, 2))}
     if radar:
         cam_idx = int(pipe.datamanager.eval_camera_indices()[0])
-        _zero_counts()
-        rend, render_s = _timed(lambda: pipe.render_camera(cam_idx))
-        launches[f"render_{name}"] = _counts()
+        with trace.recording():
+            rend = pipe.render_camera(cam_idx)
+            launches[f"render_{name}"] = _launches(trace.snapshot())
         shapes = {k: list(v.shape) for k, v in rend.items()}
         _expect(all(_finite(v) for v in rend.values()) and shapes["rgb"] == [H // u * u, W // u * u, 3]
                 and shapes["depth"] == [H // u, W // u], f"{name} render_camera: {shapes}")
         scan = int(pipe.datamanager.eval_radar_indices()[0])
-        _zero_counts()
-        rend_r, radar_s = _timed(lambda: pipe.render_radar(scan))
-        launches[f"render_radar_{name}"] = _counts()
+        with trace.recording():
+            rend_r = pipe.render_radar(scan)
+            launches[f"render_radar_{name}"] = _launches(trace.snapshot())
         ro = rend_r["radar_output"]
         _expect(list(ro.shape) == [layout.rays_per_scan, 7] and _finite(ro),
                 f"{name} render_radar: {list(ro.shape)}")
-        report.update(render_camera={"seconds": render_s, "cam_idx": cam_idx, "shapes": shapes,
-                                     "rays": (H // u) * (W // u)},
-                      render_radar={"seconds": radar_s, "shape": list(ro.shape)})
+        report.update(render_camera={"cam_idx": cam_idx, "shapes": shapes, "rays": (H // u) * (W // u)},
+                      render_radar={"shape": list(ro.shape)})
     if fid_frames:
         pipe.model.eval()
-        _zero_counts()
-        fid, fid_s = _timed(lambda: pipe.compute_fid_metrics(max_frames=fid_frames))
-        launches[f"fid_{name}"] = _counts()
+        with trace.recording():
+            fid = pipe.compute_fid_metrics(max_frames=fid_frames)
+            launches[f"fid_{name}"] = _launches(trace.snapshot())
         frames = min(fid_frames, len(pipe.datamanager.eval_camera_indices()))
-        report["fid"] = {"seconds": fid_s, "frames": frames, "renders": frames * 8,
-                         "rays_per_render": (H // u) * (W // u), "values": fid}
+        report["fid"] = {"frames": frames, "renders": frames * 8, "rays_per_render": (H // u) * (W // u),
+                         "values": fid}
         phase(f"fid_{name}", **report["fid"], launches=launches[f"fid_{name}"])
         suffix = "" if has_pretrained_weights() else "_vggsurrogate"
         want = {f"{k}_fid{suffix}" for k in FID_FAMILIES}
@@ -1481,7 +1417,6 @@ def cli_train() -> dict:
     """The train command at full width: 6 steps with every cadence, resumed to 8, then the eval command.
     The run's checkpoints stay for cli_render; the caller deletes them."""
     torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
     shutil.rmtree(CLI_RUNS, ignore_errors=True)
     run_dir = CLI_RUN_DIR
     base = ["neuradar-synthetic", "--output_dir", str(CLI_RUNS), "--experiment_name", "smoke", *CLI_CADENCES]
@@ -1490,17 +1425,14 @@ def cli_train() -> dict:
     seen = 0
     for run, argv in (("first", [*base, "--max_num_iterations", "6", "--save_only_latest_checkpoint", "false"]),
                       ("resumed", [*base, "--max_num_iterations", "8", "--load_dir", str(run_dir / "checkpoints")])):
-        t0 = time.perf_counter()
         _expect(train_script.main(argv) == 0, f"cli_train {run}: the train command failed")
-        seconds = time.perf_counter() - t0
         gc.collect()
         torch.cuda.empty_cache()
         events = [json.loads(line) for line in events_path.read_text().splitlines()]
         new, seen = events[seen:], len(events)
         got = _cadence_steps(new)
         got["checkpoints"] = sorted(int(c.stem.split("-")[1]) for c in (run_dir / "checkpoints").glob("step-*.pt"))
-        step_s = [e["iter_train_time"] for e in new if "iter_train_time" in e]
-        report[run] = {"seconds": seconds, "fired": got, "step_seconds": step_s}
+        report[run] = {"fired": got}
         _expect(got == CLI_EXPECT[run], f"cli_train {run}: cadences {got}, expected {CLI_EXPECT[run]}")
         _expect(all(math.isfinite(v) for e in new for k, v in e.items()),
                 f"cli_train {run}: a logged value is not finite")
@@ -1513,8 +1445,7 @@ def cli_train() -> dict:
     _expect(not missing, f"cli_train eval: metrics missing: {missing}")
     _expect(all(math.isfinite(v) for v in results.values()), f"cli_train eval: a metric is not finite: {results}")
     _expect(ev["checkpoint_step"] == 8, f"cli_train eval: loaded step {ev['checkpoint_step']}, expected 8")
-    report["eval"] = {"results": results, "seconds": ev["seconds"], "checkpoint_step": ev["checkpoint_step"]}
-    report["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 2**30
+    report["eval"] = {"results": results, "checkpoint_step": ev["checkpoint_step"]}
     return report
 
 
@@ -1546,34 +1477,6 @@ def _ply_points(path: Path) -> np.ndarray:
     return np.frombuffer(data[end:], np.float32).reshape(-1, 3)
 
 
-# the host (and, for marching_tetrahedra, device) work of the meshing commands, timed per function
-MESHING_TIMED = ("tsdf_fuse", "marching_tetrahedra", "estimate_normals", "screened_poisson_mesh", "vertex_normals")
-
-
-@contextlib.contextmanager
-def _timed_meshing(seconds: dict):
-    """Sum each MESHING_TIMED function's seconds into ``seconds`` while the block runs (the commands
-    look the functions up in utils/meshing.py when they call them; screened_poisson_mesh's time
-    includes its marching_tetrahedra)."""
-    originals = {name: getattr(meshing, name) for name in MESHING_TIMED}
-
-    def timed(name, fn):
-        def call(*args, **kwargs):
-            t0 = time.perf_counter()
-            out = fn(*args, **kwargs)
-            seconds[name] = seconds.get(name, 0.0) + time.perf_counter() - t0
-            return out
-        return call
-
-    for name, fn in originals.items():
-        setattr(meshing, name, timed(name, fn))
-    try:
-        yield
-    finally:
-        for name, fn in originals.items():
-            setattr(meshing, name, fn)
-
-
 def _mesh_counts(path: Path) -> dict:
     verts, faces, colors = meshing.read_ply_mesh(path)
     _expect(np.isfinite(verts).all() and (len(faces) == 0 or (faces.min() >= 0 and faces.max() < len(verts))),
@@ -1584,8 +1487,8 @@ def _mesh_counts(path: Path) -> dict:
 def cli_render(run_dir: Path, device: torch.device = torch.device("cuda")) -> dict:
     """The render, export and texture commands on the train command's run, each through its
     main(argv) on the card in this process, then the closed-loop server on a free port of localhost:
-    /info, /actors, an actor edit and a /render of RENDER_CLI_HW. Each command's seconds and output
-    counts; every frame, scan, point cloud and mesh must be present and finite."""
+    /info, /actors, an actor edit and a /render of RENDER_CLI_HW. Each command's output counts; every
+    frame, scan, point cloud and mesh must be present and finite."""
     out = RENDER_CLI_DIR
     shutil.rmtree(out, ignore_errors=True)
     out.mkdir(parents=True)
@@ -1634,15 +1537,9 @@ def cli_render(run_dir: Path, device: torch.device = torch.device("cuda")) -> di
     report = {"commands": []}
     for script, name, module, argv in commands:
         seen = set(out.rglob("*"))
-        meshing_s = {}
-        t0 = time.perf_counter()
-        with _timed_meshing(meshing_s):
-            _expect(module.main(argv) == 0, f"cli_render: {script} {name} failed")
-        torch.cuda.synchronize()
-        seconds = time.perf_counter() - t0
+        _expect(module.main(argv) == 0, f"cli_render: {script} {name} failed")
         written = sorted(p for p in set(out.rglob("*")) - seen if p.is_file())
-        counts = {"files": len(written), "pngs": sum(p.suffix == ".png" for p in written),
-                  **({"meshing_seconds": meshing_s} if meshing_s else {})}
+        counts = {"files": len(written), "pngs": sum(p.suffix == ".png" for p in written)}
         for p in written:
             if p.suffix == ".json" and p.parent.name in ("dataset", "pose-shift", "actor-shift", "interpolated",
                                                          "camera-path") and script == "render_radar":
@@ -1656,7 +1553,7 @@ def cli_render(run_dir: Path, device: torch.device = torch.device("cuda")) -> di
                 counts[f"{p.stem}_points"] = len(pts)
             elif p.suffix == ".ply":
                 counts[p.stem] = _mesh_counts(p)
-        report["commands"].append({"script": script, "command": name, "seconds": seconds, **counts})
+        report["commands"].append({"script": script, "command": name, **counts})
         phase("cli_render_command", **report["commands"][-1])
         _expect(counts["files"] > 0, f"cli_render: {script} {name} wrote nothing")
 
@@ -1678,7 +1575,7 @@ def cli_render(run_dir: Path, device: torch.device = torch.device("cuda")) -> di
             and by_cmd[("texture", "texture")]["textured"]["colored"],
             f"cli_render: counts {report['commands']}")
 
-    # the closed-loop server, and the full-frame render_pose it serves, timed on its own
+    # the closed-loop server, and the full-frame render_pose it serves
     state = closed_loop.ClosedLoopState(pipe)
     server = closed_loop.serve(state, 0, host="127.0.0.1")
     thread = threading.Thread(target=server.serve_forever, daemon=True)
@@ -1698,9 +1595,7 @@ def cli_render(run_dir: Path, device: torch.device = torch.device("cuda")) -> di
         _expect(status == 200 and n_actors == len(pipe.outputs.trajectories), f"/actors: {status}")
         _expect(request("POST", "/actors", {"index": 0, "lateral": 1.0, "rotation": 0.2})[0] == 200, "POST /actors")
         time_s = float(pipe.outputs.camera_times[cam])
-        t0 = time.perf_counter()
         status, ctype, png = request("POST", "/render", {"pose": c2w.tolist(), "time": time_s, "hw": [h, w]})
-        render_s = time.perf_counter() - t0
         _expect(status == 200 and ctype == "image/png" and _png_hw(png) == [h, w],
                 f"/render: {status} {ctype} {png[:200] if status != 200 else _png_hw(png)}")
         conn.close()
@@ -1708,11 +1603,10 @@ def cli_render(run_dir: Path, device: torch.device = torch.device("cuda")) -> di
         server.shutdown()
         server.server_close()
         thread.join(timeout=30)
-    rgb, pose_s = _timed(lambda: pipe.render_pose(c2w, hw=RENDER_CLI_HW, time_s=time_s, actor_edits=state.edits))
+    rgb = pipe.render_pose(c2w, hw=RENDER_CLI_HW, time_s=time_s, actor_edits=state.edits)
     _expect(rgb.shape == (h, w, 3), f"render_pose: {rgb.shape}")
-    report["server"] = {"render_seconds": render_s, "png_bytes": len(png), "hw": [h, w], "actors": n_actors}
-    report["render_pose_full_frame"] = {"seconds": pose_s, "hw": [h, w], "rays": (h // u) * (w // u)}
-    report["seconds_total"] = sum(c["seconds"] for c in report["commands"]) + render_s
+    report["server"] = {"png_bytes": len(png), "hw": [h, w], "actors": n_actors}
+    report["render_pose_full_frame"] = {"hw": [h, w], "rays": (h // u) * (w // u)}
     shutil.rmtree(out, ignore_errors=True)
     del pipe, state
     gc.collect()
@@ -1776,14 +1670,12 @@ def learning() -> dict:
                         ("hungarian", ["--radar-assignment", "hungarian"])):
         out_dir = Path("chiprun_out/learning") / name
         shutil.rmtree(out_dir, ignore_errors=True)
-        t0 = time.perf_counter()
         rc = validate_learning.main(["--scale", "tiny", "--iters", "300", "--eval-every", "50", "--device", "cuda",
                                      "--output-dir", str(out_dir), *flags])
-        seconds = time.perf_counter() - t0
         _expect(rc == 0, f"learning {name}: LEARNING CHECK did not PASS")
         (report_path,) = out_dir.glob("*/neuradar/learning_check.json")
         report = json.loads(report_path.read_text())
-        result[name] = {"seconds": seconds, "port": {k: report[k] for k in LEARNING_KEYS},
+        result[name] = {"port": {k: report[k] for k in LEARNING_KEYS},
                         "set_decoder": report["set_decoder"], "radar_assignment": report["radar_assignment"],
                         "curve_keys": report.get("curve_keys"),
                         "jax_curve_keys_missing": sorted(set(jax_curves) - set(report.get("curve_keys", [])))}
@@ -1906,30 +1798,22 @@ def check_k5_rows(rows: list) -> None:
 def train_splat(trainer) -> dict:
     """splatfacto-big's train step from the trainer's state (phase 3c)."""
     before = {k: v.detach().clone() for k, v in trainer.model.params.items()}
-    counted = (splat.raster_fwd, splat.raster_bwd, splat.bin_sort)
-    for k in counted:
-        k.launches = 0
-    torch.cuda.reset_peak_memory_stats()
-    step_s, losses = [], []
-    for _ in range(SPLAT_STEPS):
-        t0 = time.perf_counter()
-        loss, metrics = trainer.train_step()
-        losses.append(float(loss["total"]))
-        torch.cuda.synchronize()
-        step_s.append(time.perf_counter() - t0)
+    losses = []
+    with trace.recording():
+        for _ in range(SPLAT_STEPS):
+            loss, metrics = trainer.train_step()
+            losses.append(float(loss["total"]))
+        launches = _launches(trace.snapshot())
     changed = {k: bool((v.detach() != before[k]).any()) for k, v in trainer.model.params.items()}
-    launches = {k.__name__: k.launches for k in counted}
     _expect(all(changed.values()) and all(math.isfinite(v) for v in losses), f"train_splat: {changed} {losses}")
-    _expect(launches == {"raster_fwd": SPLAT_STEPS, "raster_bwd": SPLAT_STEPS, "bin_sort": 2 * SPLAT_STEPS},
-            f"train_splat: launches {launches}")
-    pixels = trainer.H * trainer.W
-    return {"step_s": step_s, "pixels_per_step": pixels, "pixels_per_s_median": pixels / float(np.median(step_s)),
-            "losses": losses, "tile_overflow_frac": float(metrics["tile_overflow_frac"]),
-            "alive": int(trainer.model.alive.sum()), "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+    _expect(launches == {k: SPLAT_STEPS for k in ("splat_bin_count", "splat_bin_emit", "splat_raster_fwd",
+                                                  "splat_raster_bwd")}, f"train_splat: launches {launches}")
+    return {"pixels_per_step": trainer.H * trainer.W, "losses": losses,
+            "tile_overflow_frac": float(metrics["tile_overflow_frac"]), "alive": int(trainer.model.alive.sum()),
             "launches": launches, "changed": changed}
 
 
-def train_presets(device: torch.device, gpu: str) -> tuple:
+def train_presets(device: torch.device) -> tuple:
     """The PRESETS (neuradar and neurad) on the ZOD-camera scene through ``train_preset``, each path's
     launches checked: K1 on every train path, K2 at bf16 exactly where there is radar and never the float32
     K2, and on neuradar's eval frame and radar scan only their kernels. Returns K4's rows and the launches
@@ -1937,21 +1821,21 @@ def train_presets(device: torch.device, gpu: str) -> tuple:
     scene = zod_camera_scene_outputs()
     rows, preset_launches = [], {}
     for name in PRESETS:
-        t0 = time.perf_counter()
         report = train_preset(device, name, scene)
         preset_launches.update(report["launches"])
         rows.extend(report.pop("k4"))
-        phase("train_presets", preset=name, seconds=time.perf_counter() - t0, gpu=gpu, **report)
-        got = report["launches"][f"train_{name}"]
-        _expect(got["composite_sky_fwd"] > 0 and got["composite_sky_bwd"] > 0, f"{name}: K1 never launched: {got}")
-        _expect(got["self_attention_fwd"] == 0 and got["self_attention_bwd"] == 0, f"{name} launched the float32 K2")
+        phase("train_presets", preset=name, **report)
+        got = _kernels(report["launches"][f"train_{name}"])
+        _expect({"composite_sky_fwd", "composite_sky_bwd"} <= got, f"{name}: K1 never launched: {got}")
+        _expect(not F32_K2 & got, f"{name} launched the float32 K2")
         radar = name != "neurad"
-        _expect((got["self_attention_bf16_fwd"] > 0 and got["self_attention_bf16_bwd"] > 0) == radar,
+        _expect({"self_attention_bf16_fwd", "self_attention_bf16_bwd"} <= got if radar
+                else not {"self_attention_bf16_fwd", "self_attention_bf16_bwd"} & got,
                 f"{name}: K2 at bf16 launches {got}, radar {radar}")
     for path, kernels in (("render_neuradar", {"composite_sky_fwd", "hash_encode_fwd"}),
                           ("render_radar_neuradar", {"composite_sky_fwd", "self_attention_bf16_fwd", "hash_encode_fwd"})):
         got = preset_launches[path]
-        _expect(all((n > 0) == (k in kernels) for k, n in got.items()), f"{path}: launches {got}")
+        _expect(_kernels(got) == kernels, f"{path}: launches {got}")
     return rows, preset_launches
 
 
@@ -1971,34 +1855,30 @@ def main(argv=None) -> int:
           matmul_allow_tf32=torch.backends.cuda.matmul.allow_tf32,
           cudnn_allow_tf32=torch.backends.cudnn.allow_tf32)
 
-    t0 = time.perf_counter()
     lib = build.build(verbose=True)
     build.load()
-    phase("build", seconds=time.perf_counter() - t0, library=str(lib.name))
+    phase("build", library=str(lib.name))
 
     if argv == ["k4"]:
         # K4 alone: the presets' steps, eval frame and radar scan, with K4's rows on their own encodes
-        rows, launches = train_presets(device, smi.splitlines()[0])
+        rows, launches = train_presets(device)
         for row in rows:
-            row["launches"] = launches[row["path"]][row["name"]]
+            row["launches"] = launches[row["path"]].get(_symbol(row), 0)
         print(json.dumps({"kernels": rows}))
         print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                                  "count": torch.cuda.device_count()}}))
         return 0
 
-    t0 = time.perf_counter()
     trainer = _splat_trainer(device)
-    phase("k5_setup", seconds=time.perf_counter() - t0, gaussians=trainer.config.model.max_gaussians,
-          image=[trainer.H, trainer.W])
+    phase("k5_setup", gaussians=trainer.config.model.max_gaussians, image=[trainer.H, trainer.W])
     splat_rows = k5_rows(trainer)
     for row in splat_rows:
         phase("kernel", **row)
-    t0 = time.perf_counter()
     report = train_splat(trainer)
-    phase("train_splat", seconds=time.perf_counter() - t0, gpu=smi.splitlines()[0], **report)
+    phase("train_splat", **report)
     check_k5_rows(splat_rows)
-    for row, name in zip(splat_rows, ("bin_sort", "raster_fwd", "raster_bwd")):
-        row["launches"] = report["launches"][name] // SPLAT_STEPS
+    for row in splat_rows:
+        row["launches"] = report["launches"][_symbol(row)] // SPLAT_STEPS
     del trainer
     gc.collect()
     torch.cuda.empty_cache()
@@ -2012,69 +1892,59 @@ def main(argv=None) -> int:
     for row in rows[:-len(splat_rows)]:
         phase("kernel", **row)
 
-    render_kernels = (composite_sky_fwd, self_attention_fwd, hash_encode_fwd)
-    for k in COUNTED_KERNELS:
-        k.launches = 0
-    t0 = time.perf_counter()
-    render_full_width(device)
-    render_launches = {k.__name__: k.launches for k in PATH_KERNELS}
-    phase("render", seconds=time.perf_counter() - t0, launches=render_launches,
-          peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30)
-    _expect(all(render_launches[k.__name__] > 0 for k in render_kernels),
+    with trace.recording():
+        render_full_width(device)
+        render_launches = _launches(trace.snapshot())
+    phase("render", launches=render_launches)
+    render_kernels = {"composite_sky_fwd", "self_attention_fwd", "hash_encode_fwd"}
+    _expect(render_kernels <= _kernels(render_launches),
             f"a kernel of the render path never launched: {render_launches}")
 
-    for k in COUNTED_KERNELS:
-        k.launches = 0
-    t0 = time.perf_counter()
-    train_full_width(device)
-    launches = {k.__name__: k.launches for k in PATH_KERNELS}
-    phase("train", seconds=time.perf_counter() - t0, launches=launches)
-    _expect(all(n > 0 for n in launches.values()), f"a kernel of the train path never launched: {launches}")
+    with trace.recording():
+        train_full_width(device)
+        launches = _launches(trace.snapshot())
+    phase("train", launches=launches)
+    _expect(PATH_KERNELS <= _kernels(launches), f"a kernel of the train path never launched: {launches}")
 
-    _zero_counts()
-    t0 = time.perf_counter()
     report = train_bf16(device)
     bf16_launches = report["launches"]
-    phase("train_bf16", seconds=time.perf_counter() - t0, **report)
-    _expect(all(bf16_launches["train_bf16"][k.__name__] > 0 for k in BF16_PATH_KERNELS),
+    phase("train_bf16", **report)
+    _expect(BF16_PATH_KERNELS <= _kernels(bf16_launches["train_bf16"]),
             f"a kernel of the bf16 train path never launched: {bf16_launches}")
 
-    _zero_counts()
-    t0 = time.perf_counter()
     report = train_set(device)
     set_launches = report["launches"]
-    phase("train_set", seconds=time.perf_counter() - t0, **report)
-    _expect(all(set_launches["train_set"][k.__name__] > 0 for k in BF16_PATH_KERNELS),
+    phase("train_set", **report)
+    _expect(BF16_PATH_KERNELS <= _kernels(set_launches["train_set"]),
             f"a kernel of the set decoder's train path never launched: {set_launches}")
     # the renders: K1 and K4 forward alone on the bench frame; K1, K2 at bf16 and K4 forward on the radar scans
     for path, kernels in (("render_bf16", {"composite_sky_fwd", "hash_encode_fwd"}),
                           ("render_radar_set", {"composite_sky_fwd", "self_attention_bf16_fwd", "hash_encode_fwd"}),
                           ("eval_radar_set", {"composite_sky_fwd", "self_attention_bf16_fwd", "hash_encode_fwd"})):
         got = {**bf16_launches, **set_launches}[path]
-        _expect(all((n > 0) == (k in kernels) for k, n in got.items()), f"{path}: launches {got}")
+        _expect(_kernels(got) == kernels, f"{path}: launches {got}")
     for path, got in (*bf16_launches.items(), *set_launches.items()):
-        _expect(got["self_attention_fwd"] == 0 and got["self_attention_bwd"] == 0, f"{path} launched the float32 K2")
+        _expect(not F32_K2 & _kernels(got), f"{path} launched the float32 K2")
 
-    preset_rows, preset_launches = train_presets(device, smi.splitlines()[0])
+    preset_rows, preset_launches = train_presets(device)
     rows.extend(preset_rows)
 
     # VoD's preset on the synthetic scene in VoD's sensors: 127,744 rays a step, 4,400 a radar scan;
     # then the shifted-view FIDs of 2 eval frames (8 renders each: 3 lane shifts, 1 vertical, 4 actor edits)
-    t0 = time.perf_counter()
     report = train_preset(device, VOD_PRESET, vod_sensor_scene_outputs(), fid_frames=VOD_FID_FRAMES)
     preset_launches.update(report["launches"])
     rows.extend(report.pop("k4"))
     setup = report["setup"]
-    phase("train_vod", preset=VOD_PRESET, seconds=time.perf_counter() - t0, gpu=smi.splitlines()[0], **report)
+    phase("train_vod", preset=VOD_PRESET, **report)
     _expect(setup["rays_per_step"] == VOD_STEP_RAYS and report["render_radar"]["shape"] == [VOD_SCAN_RAYS, 7],
             f"{VOD_PRESET}: {setup['rays_per_step']} rays a step, radar {report['render_radar']['shape']}")
-    for path, kernels in ((f"train_{VOD_PRESET}", set(k.__name__ for k in BF16_PATH_KERNELS)),
+    for path, kernels in ((f"train_{VOD_PRESET}", BF16_PATH_KERNELS),
                           (f"render_{VOD_PRESET}", {"composite_sky_fwd", "hash_encode_fwd"}),
                           (f"render_radar_{VOD_PRESET}", {"composite_sky_fwd", "self_attention_bf16_fwd",
                                                            "hash_encode_fwd"}),
                           (f"fid_{VOD_PRESET}", {"composite_sky_fwd", "hash_encode_fwd"})):
         got = report["launches"][path]
-        _expect(all((n > 0) == (k in kernels) for k, n in got.items()), f"{path}: launches {got}")
+        _expect(_kernels(got) == kernels, f"{path}: launches {got}")
     phase("train_presets_agreement", **check_tiny_train_agreement(device, preset="neurad"))
 
     phase("agreement", max_abs_err=check_tiny_agreement(device), **TINY_TOL)
@@ -2085,23 +1955,19 @@ def main(argv=None) -> int:
         phase("train_set_agreement", set_loss=set_loss, **check_tiny_train_agreement(device, set_loss))
         phase("train_set_bf16_agreement", set_loss=set_loss, **check_tiny_bf16_train_agreement(device, set_loss))
 
-    for k in COUNTED_KERNELS:
-        k.launches = 0
     try:
-        report = cli_train()
-        cli_launches = {k.__name__: k.launches for k in PATH_KERNELS}
+        with trace.recording():
+            report = cli_train()
+            cli_launches = _launches(trace.snapshot())
         phase("cli_train", launches=cli_launches, **report)
-        _expect(all(n > 0 for n in cli_launches.values()),
-                f"a kernel of the train command never launched: {cli_launches}")
+        _expect(PATH_KERNELS <= _kernels(cli_launches), f"a kernel of the train command never launched: {cli_launches}")
         # the render and export commands on that run: K1, K4 and the float32 K2 forward alone
-        _zero_counts()
-        t0 = time.perf_counter()
-        report = cli_render(CLI_RUN_DIR)
-        render_cli_launches = _counts()
-        phase("cli_render", seconds=time.perf_counter() - t0, launches=render_cli_launches, gpu=smi.splitlines()[0],
-              **report)
-        _expect(all((n > 0) == (k in ("composite_sky_fwd", "self_attention_fwd", "hash_encode_fwd"))
-                    for k, n in render_cli_launches.items()), f"render_cli: launches {render_cli_launches}")
+        with trace.recording():
+            report = cli_render(CLI_RUN_DIR)
+            render_cli_launches = _launches(trace.snapshot())
+        phase("cli_render", launches=render_cli_launches, **report)
+        _expect(_kernels(render_cli_launches) == {"composite_sky_fwd", "self_attention_fwd", "hash_encode_fwd"},
+                f"render_cli: launches {render_cli_launches}")
     finally:
         shutil.rmtree(CLI_RUN_DIR / "checkpoints", ignore_errors=True)  # ~1.8 GB each; the logs stay
 
@@ -2111,7 +1977,7 @@ def main(argv=None) -> int:
                      **preset_launches, "render_cli": render_cli_launches}
     for row in rows:
         if row["path"] != "standalone" and "launches" not in row:
-            row["launches"] = path_launches[row["path"]][row["name"]]
+            row["launches"] = path_launches[row["path"]].get(_symbol(row), 0)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -26,13 +26,12 @@ one hand-written op, ``ops/hash_encode.hash_encode`` (K4, ``csrc/hash_encode.cu`
 forward, bit-equal to the formulation here, with the level scalings rounded to the compute type once on
 the host (``HashEncoding.host_scalings``), so no encode copies them to the card; one launch a group of
 levels backward, inside the span ``hash_encode/scatter``, which recomputes the corners from the
-positions and adds the tables' gradient and, where needed, the positions'. The counters
-``hash_encode_kernel`` and ``hash_encode_plain`` count the encodes that took the kernel and the plain
-path. The kernel covers every preset's grid and refuses any other encode on the card (there is no
-fallback there). Every encode on the CPU is the plain path below: with gradients on and a table that
-needs one, the 2^d corners' ``table[idx]`` go through one ``_CornerGather`` an
-encode, whose backward adds every corner's gradient into the table's as autograd would for separate
-gathers (``ops/hash_scatter.hash_scatter_reference``, bit for bit), inside ``hash_encode/scatter``;
+positions and adds the tables' gradient and, where needed, the positions'. The kernel covers every
+preset's grid and refuses any other encode on the card (there is no fallback there). Every encode on the
+CPU is the plain path below: with gradients on and a table that needs one, the 2^d corners'
+``table[idx]`` go through one ``_CornerGather`` an encode, whose backward adds every corner's gradient
+into the table's as autograd would for separate gathers (``ops/hash_scatter.hash_scatter_reference``,
+bit for bit), inside ``hash_encode/scatter``;
 the corner weights, their float32 sum and the positions' gradient stay with autograd. Without
 gradients each corner is a plain ``table[idx]``, its index freed before the next corner's is made.
 """
@@ -229,14 +228,12 @@ class HashEncoding(nn.Module):
                 raise TypeError(f"without a compute dtype the encode needs positions in the table's dtype "
                                 f"{table.dtype}, got {pos_dtype}")
             with trace.span("hash_encode"):
-                trace.count("hash_encode_kernel")
                 out = hash_encode_op.hash_encode(positions.reshape(-1, self.n_input_dims), table,
                                                  self.host_scalings(table.dtype), self.table_size, L, F)
             return out.reshape(*batch_shape, self.get_out_dim())
         if self.compute_dtype is not None:
             positions = positions.to(self.compute_dtype)
         with trace.span("hash_encode"):
-            trace.count("hash_encode_plain")
             out = hash_encode(positions.reshape(-1, self.n_input_dims), table, self.scalings,
                               self.table_size, L, F)
         return out.reshape(*batch_shape, self.get_out_dim()).to(pos_dtype)

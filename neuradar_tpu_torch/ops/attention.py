@@ -19,10 +19,10 @@ seed's at b0 + b, so a batch cut in groups draws the masks of the whole.
 Inputs are float32 or bfloat16, one dtype for all. On the card a bfloat16
 call launches the kernels of ``csrc/attention_bf16.cu`` (warpgroup MMAs on bf16
 tiles that the TMA copies, every sum in float32, as the JAX package's kernel
-computes at bf16) through ``self_attention_bf16_fwd`` / ``_bwd``, which count
-their own launches; a float32 call the float32 kernels. The plain versions
-compute in float32 and return the input dtype. The backward takes the forward's
-output in float32 (for bf16, the output before its rounding: ``return_out32``).
+computes at bf16) through ``self_attention_bf16_fwd`` / ``_bwd``; a float32 call
+the float32 kernels. The plain versions compute in float32 and return the input
+dtype. The backward takes the forward's output in float32 (for bf16, the output
+before its rounding: ``return_out32``).
 """
 
 from __future__ import annotations
@@ -158,7 +158,6 @@ def self_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, dropou
     if _check("self_attention_fwd", (q, k, v), q.shape) == torch.bfloat16:
         return self_attention_bf16_fwd(q, k, v, dropout_rate, seed, return_lse, return_out32)
     out, lse = launch_fwd(build.load(), q, k, v, dropout_rate, seed, return_lse)
-    self_attention_fwd.launches += 1
     return _results(out, lse, out, return_out32)
 
 
@@ -166,9 +165,6 @@ def _results(out, lse, out32, return_out32: bool):
     """out, then lse where it was asked for (not None), then the float32 output where asked for."""
     extra = ((lse,) if lse is not None else ()) + ((out32,) if return_out32 else ())
     return (out, *extra) if extra else out
-
-
-self_attention_fwd.launches = 0
 
 
 def launch_bwd(lib, q, k, v, out, dout, lse, dropout_rate: float, seed: int):
@@ -196,12 +192,7 @@ def self_attention_bwd(q, k, v, out, dout, lse, dropout_rate: float = 0.0,
     _check("self_attention_bwd", (q, k, v, out, dout), q.shape)
     B, S, _ = q.shape
     _check_f32("self_attention_bwd: lse", lse, (B, S), q.device)
-    grads = launch_bwd(build.load(), q, k, v, out, dout, lse, dropout_rate, seed)
-    self_attention_bwd.launches += 1
-    return grads
-
-
-self_attention_bwd.launches = 0
+    return launch_bwd(build.load(), q, k, v, out, dout, lse, dropout_rate, seed)
 
 
 def launch_bf16_fwd(lib, q, k, v, dropout_rate: float, seed: int, return_lse: bool, return_out32: bool):
@@ -227,11 +218,7 @@ def self_attention_bf16_fwd(q, k, v, dropout_rate: float = 0.0, seed: int = 0, r
     if q.dtype != torch.bfloat16:
         raise TypeError(f"self_attention_bf16_fwd takes bfloat16, got {q.dtype}")
     out, lse, out32 = launch_bf16_fwd(build.load(), q, k, v, dropout_rate, seed, return_lse, return_out32)
-    self_attention_bf16_fwd.launches += 1
     return _results(out, lse, out32, return_out32)
-
-
-self_attention_bf16_fwd.launches = 0
 
 
 def launch_bf16_bwd(lib, q, k, v, out32, dout, lse, dropout_rate: float, seed: int):
@@ -260,12 +247,7 @@ def self_attention_bf16_bwd(q, k, v, out32, dout, lse, dropout_rate: float = 0.0
     B, S, D = q.shape
     _check_f32("self_attention_bf16_bwd: out32", out32, (B, S, D), q.device)
     _check_f32("self_attention_bf16_bwd: lse", lse, (B, S), q.device)
-    grads = launch_bf16_bwd(build.load(), q, k, v, out32, dout, lse, dropout_rate, seed)
-    self_attention_bf16_bwd.launches += 1
-    return grads
-
-
-self_attention_bf16_bwd.launches = 0
+    return launch_bf16_bwd(build.load(), q, k, v, out32, dout, lse, dropout_rate, seed)
 
 
 class _SelfAttention(torch.autograd.Function):

@@ -7,7 +7,8 @@ cudaError_t code. Each source is compiled to an object by its own nvcc, all
 started together, and the objects are linked into one library. The
 library's file name carries a hash of the sources and the headers they
 include, so an edited source or header is rebuilt and a stale library is
-never loaded.
+never loaded. ``check`` takes each launch's return code and counts the
+launch as the trace counter ``launches/<symbol>``.
 """
 
 from __future__ import annotations
@@ -19,6 +20,8 @@ import shutil
 import subprocess
 import tempfile
 from pathlib import Path
+
+from neuradar_tpu_torch.utils import trace
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -161,6 +164,9 @@ def build_each(sources: dict, out_dir: Path) -> dict:
     return libs
 
 
-def check(code: int, name: str) -> None:
+def check(code: int, symbol: str) -> None:
+    """Raise if the launcher ``symbol`` (its name in ``_SIGNATURES``) returned an error; else count
+    its launch as ``launches/<symbol>`` in the current trace window."""
     if code != 0:
-        raise RuntimeError(f"{name}: CUDA launch failed with cudaError_t {code}")
+        raise RuntimeError(f"{symbol}: CUDA launch failed with cudaError_t {code}")
+    trace.count("launches/" + symbol)

@@ -77,8 +77,4 @@ def row_gather(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
         code = build.load().row_gather(table.data_ptr(), idx.data_ptr(), out.data_ptr(),
                                        _flag(table.device).data_ptr(), T, N, F, stream)
         build.check(code, "row_gather")
-        row_gather.launches += 1
     return out
-
-
-row_gather.launches = 0

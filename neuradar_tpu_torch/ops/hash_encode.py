@@ -12,7 +12,6 @@ most ``SCRATCH_FLOATS`` values), and where ``ctx.needs_input_grad`` asks for it 
 gradient in float64 and rounds it once. The kernel is templated on d in {3, 4}, F in {1, 2, 4} and R,
 which covers every preset's grid; ``check`` refuses any other encode (an untemplated grid or dtype, CUDA
 tensors on two devices, a table not aligned to its rows): there is no fallback on the card.
-``hash_encode_fwd.launches`` and ``hash_encode_bwd.launches`` count the launches.
 """
 
 from __future__ import annotations
@@ -88,7 +87,6 @@ def hash_encode_fwd(positions: torch.Tensor, table: torch.Tensor, scalings: Sequ
     code = build.load().hash_encode_fwd(positions.data_ptr(), table.data_ptr(), int(table.dtype == torch.bfloat16),
                                         out.data_ptr(), _floats(scalings), N, d, L, F, table_size, stream)
     build.check(code, "hash_encode_fwd")
-    hash_encode_fwd.launches += 1
     return out
 
 
@@ -120,14 +118,9 @@ def hash_encode_bwd(grad_out: torch.Tensor, positions: torch.Tensor, table: torc
                                    L, F, T, l0, l1, acc_ptr, out_ptr, _ptr(pos_acc), _ptr(gp), int(g == 0),
                                    int(g == groups - 1), stream)
         build.check(code, "hash_encode_bwd")
-        hash_encode_bwd.launches += 1
         if table_grad:
             trace.count("hash_scatter_rows", 2**d * N * (l1 - l0))
     return gp, gt
-
-
-hash_encode_fwd.launches = 0
-hash_encode_bwd.launches = 0
 
 
 class HashEncode(torch.autograd.Function):

@@ -141,12 +141,8 @@ def bin_sort(feats: torch.Tensor, radius: torch.Tensor, in_view: torch.Tensor, t
     gids = torch.empty(total, dtype=torch.int32, device=device)
     build.check(lib.splat_bin_emit(*gaussians, ends.data_ptr(), counts.data_ptr(), G, tw, th, TILE_RADIUS,
                                    keys.data_ptr(), gids.data_ptr(), stream), "splat_bin_emit")
-    bin_sort.launches += 2
     _, order = torch.sort(keys, stable=True)
     return gids[order], tile_start, tile_counts, (listed, overflowed)
-
-
-bin_sort.launches = 0
 
 
 def _lists(*tensors):
@@ -164,11 +160,7 @@ def raster_fwd(feats, gids, tile_start, tile_counts, top_k: int, tw: int, height
     build.check(build.load().splat_raster_fwd(
         *_lists(feats, gids, tile_start, tile_counts), tile_counts.numel(), top_k, tw, width, height,
         color.data_ptr(), alpha.data_ptr(), depth.data_ptr(), stream), "splat_raster_fwd")
-    raster_fwd.launches += 1
     return color, alpha, depth
-
-
-raster_fwd.launches = 0
 
 
 def raster_bwd(feats, gids, tile_start, tile_counts, top_k: int, tw: int, height: int, width: int, outputs,
@@ -181,11 +173,7 @@ def raster_bwd(feats, gids, tile_start, tile_counts, top_k: int, tw: int, height
     build.check(build.load().splat_raster_bwd(
         *_lists(feats, gids, tile_start, tile_counts), tile_counts.numel(), top_k, tw, width, height,
         *(t.data_ptr() for t in (*outputs, *grads, dfeats)), stream), "splat_raster_bwd")
-    raster_bwd.launches += 1
     return dfeats
-
-
-raster_bwd.launches = 0
 
 
 class _Raster(torch.autograd.Function):

@@ -75,11 +75,8 @@ def composite_sky_fwd(alpha: torch.Tensor, feats: torch.Tensor) -> Tuple[torch.T
     code = lib.composite_sky_fwd(alpha.data_ptr(), feats.data_ptr(), w_sky.data_ptr(), features.data_ptr(),
                                  accum.data_ptr(), R, S, C, stream)
     build.check(code, "composite_sky_fwd")
-    composite_sky_fwd.launches += 1
     return w_sky, features, accum
 
-
-composite_sky_fwd.launches = 0
 
 # The backward kernel's two paths (csrc/composite_sky.cu): the float4 path takes up to 64 samples
 # and a multiple of 4 channels up to 128, with 16-byte aligned rows; the general path takes the
@@ -97,20 +94,6 @@ def composite_sky_bwd_path(feats: torch.Tensor, df: torch.Tensor) -> str:
     return "float4" if fits and aligned else "general"
 
 
-def launch_bwd(lib, alpha, feats, dwsky, df, daccum, path: str) -> Tuple[torch.Tensor, torch.Tensor]:
-    """One launch of ``lib``'s K1 backward on checked tensors: the float4 launcher
-    (``composite_sky_bwd``) or the general one."""
-    R, S = alpha.shape
-    dalpha = torch.empty_like(alpha)
-    dfeats = torch.empty_like(feats)
-    stream = torch.cuda.current_stream(alpha.device).cuda_stream
-    fn = lib.composite_sky_bwd if path == "float4" else lib.composite_sky_bwd_general
-    code = fn(alpha.data_ptr(), feats.data_ptr(), dwsky.data_ptr(), df.data_ptr(), daccum.data_ptr(),
-              dalpha.data_ptr(), dfeats.data_ptr(), R, S, feats.shape[-1], stream)
-    build.check(code, f"composite_sky_bwd ({path})")
-    return dalpha, dfeats
-
-
 def composite_sky_bwd(alpha, feats, dwsky, df, daccum) -> Tuple[torch.Tensor, torch.Tensor]:
     """K1 backward: cotangents of (w_sky, features, accum) -> (dalpha [R, S], dfeats [R, S, C])."""
     if all(t.device.type == "cpu" for t in (alpha, feats, dwsky, df, daccum)):
@@ -122,12 +105,15 @@ def composite_sky_bwd(alpha, feats, dwsky, df, daccum) -> Tuple[torch.Tensor, to
     _check("composite_sky_bwd", (alpha, feats, dwsky, df, daccum), ((R, S), (R, S, C), (R, S), (R, C), (R, 1)))
     if not 0 < S <= _MAX_BWD_SAMPLES:
         raise ValueError(f"composite_sky_bwd takes 1 to {_MAX_BWD_SAMPLES} samples per ray, got {S}")
-    out = launch_bwd(build.load(), alpha, feats, dwsky, df, daccum, composite_sky_bwd_path(feats, df))
-    composite_sky_bwd.launches += 1
-    return out
-
-
-composite_sky_bwd.launches = 0
+    # one launch: the float4 launcher (composite_sky_bwd) or the general one
+    symbol = "composite_sky_bwd" if composite_sky_bwd_path(feats, df) == "float4" else "composite_sky_bwd_general"
+    dalpha = torch.empty_like(alpha)
+    dfeats = torch.empty_like(feats)
+    stream = torch.cuda.current_stream(alpha.device).cuda_stream
+    code = getattr(build.load(), symbol)(alpha.data_ptr(), feats.data_ptr(), dwsky.data_ptr(), df.data_ptr(),
+                                         daccum.data_ptr(), dalpha.data_ptr(), dfeats.data_ptr(), R, S, C, stream)
+    build.check(code, symbol)
+    return dalpha, dfeats
 
 
 class _CompositeSky(torch.autograd.Function):
@@ -177,9 +163,5 @@ def fused_composite(alpha: torch.Tensor, features: torch.Tensor, steps: torch.Te
     stream = torch.cuda.current_stream(alpha.device).cuda_stream
     code = lib.composite_fwd(alpha.data_ptr(), features.data_ptr(), steps.data_ptr(), weights.data_ptr(),
                              out.data_ptr(), depth.data_ptr(), accum.data_ptr(), R, S, C, stream)
-    build.check(code, "fused_composite")
-    fused_composite.launches += 1
+    build.check(code, "composite_fwd")
     return weights, out, depth, accum
-
-
-fused_composite.launches = 0

@@ -27,6 +27,7 @@ import pytest
 import torch
 
 from neuradar_tpu_torch.ops import attention as t_attention
+from neuradar_tpu_torch.utils import trace
 
 LOG2E = 1.4426950408889634
 SEED = 3
@@ -330,23 +331,23 @@ def test_bf16_kernels_match_plain(cuda, S, D, rate):
     the same card; each call is a launch of the bf16 kernel, none of the float32 one."""
     B = 4 if S == 3531 else 2
     q, k, v, dout = _card_inputs(cuda, B, S, D)
-    counts = (t_attention.self_attention_fwd.launches, t_attention.self_attention_bwd.launches,
-              t_attention.self_attention_bf16_fwd.launches, t_attention.self_attention_bf16_bwd.launches)
-    out, lse, out32 = t_attention.self_attention_fwd(q, k, v, rate, 123, return_lse=True, return_out32=True)
+    with trace.recording():
+        out, lse, out32 = t_attention.self_attention_fwd(q, k, v, rate, 123, return_lse=True, return_out32=True)
+        got = t_attention.self_attention_bwd(q, k, v, out32, dout, lse, rate, 123)
+    launches = {name: trace.snapshot().total("launches/" + name) for name in (
+        "self_attention_fwd", "self_attention_bwd", "self_attention_bf16_fwd", "self_attention_bf16_bwd")}
     want32 = t_attention._attend(q, k, v, 123, rate)
     assert out.dtype == torch.bfloat16 and lse.dtype == out32.dtype == torch.float32
     torch.testing.assert_close(out, want32.to(torch.bfloat16), **K2_BF16_TOL)
     torch.testing.assert_close(out32, want32, **K2_OUT32_TOL)
     s = torch.einsum("bqd,bkd->bqk", q.float() * D**-0.5, k.float())
     torch.testing.assert_close(lse, torch.logsumexp(s, -1), rtol=1e-5, atol=1e-5)
-    got = t_attention.self_attention_bwd(q, k, v, out32, dout, lse, rate, 123)
     want = t_attention.attention_bwd_reference(q, k, v, dout, 123, rate)
     for g, w in zip(got, want):
         assert g.dtype == torch.bfloat16
         torch.testing.assert_close(g, w, **K2_BF16_BWD_TOL)
-    assert counts[0] == t_attention.self_attention_fwd.launches and counts[1] == t_attention.self_attention_bwd.launches
-    assert t_attention.self_attention_bf16_fwd.launches == counts[2] + 1
-    assert t_attention.self_attention_bf16_bwd.launches == counts[3] + 1
+    assert launches == {"self_attention_fwd": 0, "self_attention_bwd": 0, "self_attention_bf16_fwd": 1,
+                        "self_attention_bf16_bwd": 1}
 
 
 @pytest.mark.cuda

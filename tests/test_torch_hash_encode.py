@@ -1,6 +1,6 @@
 """The hash-grid encode as one CUDA op (K4, ``ops/hash_encode.py``, ``csrc/hash_encode.cu``).
 
-On the CPU: CPU tensors take the plain path and count ``hash_encode_plain``; the host-rounded level
+On the CPU: CPU tensors take the plain path and launch no kernel; the host-rounded level
 scalings are ``torch.tensor(scalings, dtype=)``'s; an untemplated grid runs the plain path on the CPU and
 has no kernel; ``corner_rows`` gives the plain path's corner gradients bit for bit; and the float64
 evaluation of the positions' gradient (``encodings.positions_grad_float64``) is autograd's at float64.
@@ -91,16 +91,15 @@ def _rel_l2(got, want) -> float:
 @pytest.mark.parametrize("dtype", DTYPES, ids=DTYPE_IDS)
 @pytest.mark.parametrize("dims", [3, 4])
 def test_cpu_encode_takes_the_plain_path(dims, dtype):
-    """CPU tensors take the plain path: ``hash_encode_plain`` counts the encode, no kernel launches,
-    and the output is the plain formulation's."""
+    """CPU tensors take the plain path: one encode, no kernel launches, and the output is the plain
+    formulation's."""
     enc = _encoder(dims, 2, dtype)
     positions = torch.rand((50, dims), generator=torch.Generator().manual_seed(dims))
-    launches = (t_encode.hash_encode_fwd.launches, t_encode.hash_encode_bwd.launches)
     with trace.recording():
         out = enc(positions)
     snap = trace.snapshot()
-    assert snap.total("hash_encode_plain") == 1 and snap.total("hash_encode_kernel") == 0
-    assert (t_encode.hash_encode_fwd.launches, t_encode.hash_encode_bwd.launches) == launches
+    assert [s.name for s in snap.spans].count("hash_encode") == 1
+    assert (snap.total("launches/hash_encode_fwd"), snap.total("launches/hash_encode_bwd")) == (0, 0)
     assert torch.equal(out, _plain(enc, positions))
 
 
@@ -143,7 +142,9 @@ def test_untemplated_grids_fall_back(case):
     enc = _encoder(3, 3, torch.float32)
     with trace.recording():
         out = enc(torch.rand((20, 3), generator=torch.Generator().manual_seed(1)))
-    assert trace.snapshot().total("hash_encode_plain") == 1 and out.shape == (20, 12)
+    snap = trace.snapshot()
+    assert [s.name for s in snap.spans].count("hash_encode") == 1 and out.shape == (20, 12)
+    assert snap.total("launches/hash_encode_fwd") == 0
 
 
 @pytest.mark.parametrize("dtype", DTYPES, ids=DTYPE_IDS)
@@ -217,17 +218,14 @@ def _points(device, N, d, seed):
 @pytest.mark.parametrize("grid", list(GRIDS))
 def test_forward_bit_equal_to_plain(cuda, grid, dtype, grad):
     """The kernel's output equals the plain path's on the card bit for bit, at every preset's grid, in
-    both compute types, with gradients on and off; one launch, counted as ``hash_encode_kernel``."""
+    both compute types, with gradients on and off; one launch (``launches/hash_encode_fwd``)."""
     enc = _grid_encoder(grid, dtype, cuda)
     positions = _points(cuda, 1 << 16, enc.n_input_dims, seed=3)
     if grad:
         positions.requires_grad_(True)
-    launches = t_encode.hash_encode_fwd.launches
     with torch.set_grad_enabled(grad), trace.recording():
         got = enc(positions)
-    snap = trace.snapshot()
-    assert t_encode.hash_encode_fwd.launches - launches == 1
-    assert snap.total("hash_encode_kernel") == 1 and snap.total("hash_encode_plain") == 0
+    assert trace.snapshot().total("launches/hash_encode_fwd") == 1
     assert got.requires_grad == grad
     with torch.no_grad():
         want = _plain(enc, positions.detach())
@@ -280,13 +278,12 @@ def test_table_gradient_within_float64_sum(cuda, dims, F, dtype, monkeypatch):
     enc = _encoder(dims, F, dtype, device=cuda, num_levels=L)
     positions = _hot_points(cuda, N, dims, seed=dims * F)
     grad_out = _grad_out(cuda, N, L * F, seed=dims + F)
-    launches = t_encode.hash_encode_bwd.launches
     with trace.recording():
         got = _table_grad(enc, positions, grad_out)
         torch.cuda.synchronize()
     snap = trace.snapshot()
-    assert snap.total("hash_encode_kernel") == 1 and snap.total("hash_encode_plain") == 0
-    assert t_encode.hash_encode_bwd.launches - launches == (L if dtype == torch.bfloat16 else 1)
+    assert snap.total("launches/hash_encode_fwd") == 1
+    assert snap.total("launches/hash_encode_bwd") == (L if dtype == torch.bfloat16 else 1)
     shape = (L * enc.table_size, F)
     grads, idxs = _contributions(enc, positions, grad_out)
     rows = torch.cat([i.reshape(-1) for i in idxs])
@@ -354,12 +351,12 @@ def test_positions_gradient_no_further_from_float64(cuda, grid, dtype):
     grad_out = _grad_out(cuda, N, enc.get_out_dim(), seed=9)
     pos = positions.clone().requires_grad_(True)
     enc.hash_table.grad = None
-    launches = t_encode.hash_encode_bwd.launches
-    enc(pos).backward(grad_out)
+    with trace.recording():
+        enc(pos).backward(grad_out)
     table_grad = enc.hash_table.grad.clone()
     per = t_encode.levels_per_launch(enc.table_size, enc.features_per_level, enc.num_levels,
                                      enc.compute_dtype or torch.float32)
-    assert t_encode.hash_encode_bwd.launches - launches == -(-enc.num_levels // per)
+    assert trace.snapshot().total("launches/hash_encode_bwd") == -(-enc.num_levels // per)
     want = position_grad_formula(enc, positions, enc.hash_table.detach(), grad_out)
     plain = positions.clone().requires_grad_(True)
     _plain(enc, plain).backward(grad_out)
@@ -388,13 +385,12 @@ def test_encode_backward_runs_the_kernel(cuda, dims, dtype):
     enc = enc.to(cuda)
     enc.hash_table.grad = None
     pos = positions.to(cuda).requires_grad_(True)
-    before = (t_encode.hash_encode_fwd.launches, t_encode.hash_encode_bwd.launches)
     with trace.recording(), torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
         out = enc(pos)
         out.backward(weights.to(cuda))
         torch.cuda.synchronize()
     snap = trace.snapshot()
-    assert (t_encode.hash_encode_fwd.launches - before[0], t_encode.hash_encode_bwd.launches - before[1]) == (1, 1)
+    assert (snap.total("launches/hash_encode_fwd"), snap.total("launches/hash_encode_bwd")) == (1, 1)
     assert snap.total("hash_scatter_rows") == 2**dims * 300 * 4
     assert "host_sync/hash_scalings" not in {s.name for s in snap.spans}
     (span,) = [s for s in snap.spans if s.name == "hash_encode/scatter"]

@@ -16,6 +16,7 @@ import torch
 
 from neuradar_tpu_torch.ops import gather as t_gather
 from neuradar_tpu_torch.ops import volumetric as t_volumetric
+from neuradar_tpu_torch.utils import trace
 
 K3_TOL = dict(rtol=1e-5, atol=1e-6)  # K1's: weights and sums of 32 float32 terms in other orders
 
@@ -66,9 +67,9 @@ def test_fused_composite_plain_matches_jax(jax_composite, which):
 
 def test_fused_composite_cpu_runs_plain_version():
     alpha, feats, steps = (torch.from_numpy(x) for x in _k3_inputs(R=20))
-    before = t_volumetric.fused_composite.launches
-    got = t_volumetric.fused_composite(alpha, feats, steps)
-    assert t_volumetric.fused_composite.launches == before
+    with trace.recording():
+        got = t_volumetric.fused_composite(alpha, feats, steps)
+    assert trace.snapshot().total("launches/composite_fwd") == 0
     for g, w in zip(got, t_volumetric.composite_reference(alpha, feats, steps)):
         torch.testing.assert_close(g, w, rtol=0, atol=0)
 
@@ -88,9 +89,9 @@ def probe_inputs():
 def test_row_gather_plain_matches_probe(probe_inputs):
     table, idx = probe_inputs
     want = np.asarray(table)[idx]  # the probe's reference
-    before = t_gather.row_gather.launches
-    got = t_gather.row_gather(torch.from_numpy(table), torch.from_numpy(idx))
-    assert t_gather.row_gather.launches == before
+    with trace.recording():
+        got = t_gather.row_gather(torch.from_numpy(table), torch.from_numpy(idx))
+    assert trace.snapshot().total("launches/row_gather") == 0
     np.testing.assert_array_equal(got.numpy(), want)
 
 
@@ -118,9 +119,9 @@ def test_row_gather_refuses_other_types(probe_inputs):
 def test_fused_composite_kernel_matches_plain(cuda, R, C):
     """R = 37 leaves a partly empty last block; C = 40 needs two channel passes."""
     alpha, feats, steps = (torch.from_numpy(x).to(cuda) for x in _k3_inputs(R=R, S=33, C=C))
-    before = t_volumetric.fused_composite.launches
-    got = t_volumetric.fused_composite(alpha, feats, steps)
-    assert t_volumetric.fused_composite.launches == before + 1
+    with trace.recording():
+        got = t_volumetric.fused_composite(alpha, feats, steps)
+    assert trace.snapshot().total("launches/composite_fwd") == 1
     want = t_volumetric.composite_reference(alpha.double(), feats.double(), steps.double())
     for g, w in zip(got, want):
         torch.testing.assert_close(g.double(), w, **K3_TOL)
@@ -264,9 +265,9 @@ def test_row_gather_kernel_edge_counts(cuda, F, n):
     gen = torch.Generator(device=cuda).manual_seed(F * 100 + N)
     table = torch.randn((5000, F), generator=gen, device=cuda)
     idx = torch.randint(0, 5000, (N,), generator=gen, device=cuda, dtype=torch.int32)
-    before = t_gather.row_gather.launches
-    got = t_gather.row_gather(table, idx)
-    assert t_gather.row_gather.launches == before + (N > 0)
+    with trace.recording():
+        got = t_gather.row_gather(table, idx)
+    assert trace.snapshot().total("launches/row_gather") == (N > 0)
     assert got.shape == (N, F) and torch.equal(got, t_gather.row_gather_reference(table, idx))
     t_gather.check_indices(cuda)
 

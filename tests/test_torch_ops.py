@@ -21,6 +21,7 @@ import torch
 
 from neuradar_tpu_torch.ops import attention as t_attention
 from neuradar_tpu_torch.ops import volumetric as t_volumetric
+from neuradar_tpu_torch.utils import trace
 
 K1_TOL = dict(rtol=1e-5, atol=1e-6)
 K2_TOL = dict(rtol=1e-4, atol=1e-5)  # the fused kernels sum the softmax in another order
@@ -85,10 +86,10 @@ def test_composite_sky_plain_matches_jax(jax_volumetric, which):
 
 def test_composite_sky_cpu_runs_plain_version():
     alpha, feats = (torch.from_numpy(x) for x in _k1_inputs(R=64))
-    before = t_volumetric.composite_sky_fwd.launches
-    got = t_volumetric.composite_sky_fwd(alpha, feats)
+    with trace.recording():
+        got = t_volumetric.composite_sky_fwd(alpha, feats)
     want = t_volumetric.composite_sky_reference(alpha, feats)
-    assert t_volumetric.composite_sky_fwd.launches == before
+    assert trace.snapshot().total("launches/composite_sky_fwd") == 0
     for g, w in zip(got, want):
         torch.testing.assert_close(g, w, rtol=0, atol=0)
 
@@ -240,9 +241,12 @@ def test_composite_sky_bwd_kernel_matches_plain(cuda, R, S, C):
     inputs = _k1_bwd_card_inputs(cuda, R, S, C)
     path = t_volumetric.composite_sky_bwd_path(inputs[1], inputs[3])
     assert path == ("float4" if S <= 64 and C % 4 == 0 else "general")
-    before = t_volumetric.composite_sky_bwd.launches
-    got = t_volumetric.composite_sky_bwd(*inputs)
-    assert t_volumetric.composite_sky_bwd.launches == before + 1
+    with trace.recording():
+        got = t_volumetric.composite_sky_bwd(*inputs)
+    snap = trace.snapshot()
+    float4 = path == "float4"
+    assert (snap.total("launches/composite_sky_bwd"), snap.total("launches/composite_sky_bwd_general")) == (
+        float4, not float4)
     want = t_volumetric.composite_sky_bwd_reference(*inputs)
     for g, w in zip(got, want):
         torch.testing.assert_close(g, w, **K1_BWD_TOL)

@@ -678,9 +678,9 @@ def test_set_model_render_on_card_matches_cpu(cuda):
     version on the CPU, same weights: rtol 1e-4, atol 1e-4; K2's forward launched."""
     gpu, cpu = _tiny_set_pipeline(cuda), _tiny_set_pipeline("cpu")
     cpu.model.load_state_dict({k: v.cpu() for k, v in gpu.model.state_dict().items()})
-    t_attention.self_attention_fwd.launches = 0
-    got = gpu.render_radar([0, 5])["radar_output"]
-    assert t_attention.self_attention_fwd.launches > 0
+    with trace.recording():
+        got = gpu.render_radar([0, 5])["radar_output"]
+    assert trace.snapshot().total("launches/self_attention_fwd") > 0
     assert got.shape == (2, QUERIES, 7)
     torch.testing.assert_close(got.cpu(), cpu.render_radar([0, 5])["radar_output"], rtol=1e-4, atol=1e-4)
 
@@ -695,17 +695,18 @@ def test_set_model_train_step_on_card_matches_cpu(cuda, loss):
     gpu, cpu = _tiny_set_pipeline(cuda, loss), _tiny_set_pipeline("cpu", loss)
     cpu.model.load_state_dict({k: v.cpu() for k, v in gpu.model.state_dict().items()})
     batch = gpu.datamanager.sample_train_batch()
-    t_attention.self_attention_fwd.launches = t_attention.self_attention_bwd.launches = 0
     results = []
-    for pipe in (gpu, cpu):
-        pipe.model.train()
-        pipe.model.zero_grad()
-        total, losses, _ = pipe.make_train_loss_fn()(batch, torch.Generator().manual_seed(7))
-        total.backward()
-        results.append(({"total": total.detach().cpu(), **{k: v.detach().cpu() for k, v in losses.items()}},
-                        {n: (p.grad if p.grad is not None else torch.zeros_like(p)).cpu()
-                         for n, p in pipe.model.named_parameters()}))
-    assert t_attention.self_attention_fwd.launches > 0 and t_attention.self_attention_bwd.launches > 0
+    with trace.recording():
+        for pipe in (gpu, cpu):
+            pipe.model.train()
+            pipe.model.zero_grad()
+            total, losses, _ = pipe.make_train_loss_fn()(batch, torch.Generator().manual_seed(7))
+            total.backward()
+            results.append(({"total": total.detach().cpu(), **{k: v.detach().cpu() for k, v in losses.items()}},
+                            {n: (p.grad if p.grad is not None else torch.zeros_like(p)).cpu()
+                             for n, p in pipe.model.named_parameters()}))
+    snap = trace.snapshot()
+    assert snap.total("launches/self_attention_fwd") > 0 and snap.total("launches/self_attention_bwd") > 0
     (g_loss, g_grad), (c_loss, c_grad) = results
     assert "radar_aux_loss" in c_loss
     for key, c in c_loss.items():

@@ -12,6 +12,7 @@ import pytest
 import torch
 
 from neuradar_tpu_torch.ops import splat
+from neuradar_tpu_torch.utils import trace
 
 
 @pytest.fixture
@@ -90,12 +91,13 @@ def test_kernel_matches_plain(cuda, case):
     results = []
     for fn in (splat.render, splat.render_plain):
         leaf = feats.clone().requires_grad_(True)
-        before = (splat.raster_fwd.launches, splat.raster_bwd.launches)
-        *images, stats = fn(leaf, radius, in_view, H, W, top_k)
-        torch.autograd.backward(images, grads)
-        torch.cuda.synchronize()
-        results.append((images, stats, leaf.grad, (splat.raster_fwd.launches - before[0],
-                                                   splat.raster_bwd.launches - before[1])))
+        with trace.recording():
+            *images, stats = fn(leaf, radius, in_view, H, W, top_k)
+            torch.autograd.backward(images, grads)
+            torch.cuda.synchronize()
+        snap = trace.snapshot()
+        results.append((images, stats, leaf.grad, (snap.total("launches/splat_raster_fwd"),
+                                                   snap.total("launches/splat_raster_bwd"))))
     (k_images, k_stats, k_grad, k_launches), (p_images, p_stats, p_grad, p_launches) = results
     assert k_launches == (1, 1) and p_launches == (0, 0)
     assert k_stats == p_stats

@@ -1,7 +1,8 @@
 """The port's spans and counters (``neuradar_tpu_torch/utils/trace.py``) on the CPU: when they are
 recorded, how a request's and a train step's spans nest and share an id, and that routing a hash
 grid encode's corner gathers through the ``hash_encode/scatter`` span leaves the tables' gradients
-bit-equal to autograd's own."""
+bit-equal to autograd's own, and that every hand-written kernel's launch is counted in one place,
+``ops/build.check``."""
 
 import threading
 
@@ -14,6 +15,7 @@ from neuradar_tpu_torch.data.dataparsers import synthetic as t_synthetic
 from neuradar_tpu_torch.engine import optimizers as t_opt
 from neuradar_tpu_torch.engine.trainer import Trainer, TrainerConfig
 from neuradar_tpu_torch.field_components import encodings
+from neuradar_tpu_torch.ops import build
 from neuradar_tpu_torch.pipelines import ad_neuradar_pipeline as t_pipeline
 from neuradar_tpu_torch.utils import trace
 from tests.test_torch_slice import RADAR_FOV, SCENE, shrink
@@ -184,3 +186,17 @@ def test_train_step_spans_and_syncs(scene):
     syncs = [s for s in snap.spans if s.name.startswith("host_sync/")]
     assert snap.count("host_syncs", [step]) == len(syncs) > 0
     assert snap.count("host_syncs", []) == 0
+
+
+def test_launches_are_counted_by_build_check():
+    """(e) ``build.check`` counts a successful launch as ``launches/<symbol>`` in the current window,
+    once; a failed launch raises and counts nothing; outside a recording window nothing is counted."""
+    with trace.recording():
+        build.check(0, "composite_sky_fwd")
+        with pytest.raises(RuntimeError, match="composite_sky_fwd.*cudaError_t 2"):
+            build.check(2, "composite_sky_fwd")
+    snap = trace.snapshot()
+    assert snap.total("launches/composite_sky_fwd") == 1
+    assert snap.counters == {("launches/composite_sky_fwd", None): 1}
+    build.check(0, "composite_sky_fwd")
+    assert trace.snapshot().counters == snap.counters
