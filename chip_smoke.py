@@ -425,7 +425,7 @@ def _assert_all_close(got, want, tol, what):
 
 
 def _group_scans(model_config, num_scans: int) -> int:
-    """The scans in one radar decode group, as the model's _decode_radar groups ``num_scans``."""
+    """The scans in one radar decode group, as the model's decode_radar groups ``num_scans``."""
     return num_scans // radar_decode_groups(num_scans, model_config.radar_decode_chunks)
 
 

@@ -25,7 +25,6 @@ from neuradar_tpu_torch.model_components.dynamic_actors import (
     assign_samples_to_actors,
     gather_selected_w2b_components,
 )
-from neuradar_tpu_torch.utils import trace
 from neuradar_tpu_torch.utils.math import GaussiansStd
 
 EPS = 1.0e-7
@@ -59,14 +58,20 @@ class NeuRADHashEncodingConfig:
     """False: no gradient reaches the actor trajectories through this grid."""
 
 
-def _rescale_grid_features(grid_feats: torch.Tensor, std: torch.Tensor, scalings: Sequence[float],
+def _rescale_grid_features(grid_feats: torch.Tensor, std: torch.Tensor, scalings: torch.Tensor,
                            num_levels: int, features_per_level: int) -> torch.Tensor:
-    """grid_feats [..., L*F] * 1 / max(scaling_l * 2 * std, 1) per level."""
+    """grid_feats [..., L*F] * 1 / max(scaling_l * 2 * std, 1) per level; ``scalings`` [L] is the
+    grid's level scalings on the device (``feature_scalings``)."""
     feats = grid_feats.reshape(*grid_feats.shape[:-1], num_levels, features_per_level)
-    with trace.host_sync("feature_scalings"):
-        scal = torch.tensor(scalings, dtype=std.dtype, device=std.device)
-    weights = 1.0 / torch.clamp(scal * 2 * std, min=1.0)  # [..., L]
+    weights = 1.0 / torch.clamp(scalings.to(std.dtype) * 2 * std, min=1.0)  # [..., L]
     return (feats * weights[..., None]).reshape(*grid_feats.shape[:-1], num_levels * features_per_level)
+
+
+def feature_scalings(scalings: Sequence[float]) -> torch.Tensor:
+    """A grid's level scalings as the float32 tensor the feature rescale weighs with, made once with the
+    module (a buffer that moves with it), so no encode copies them to the card. The scalings are whole
+    numbers in float32, so ``.to(dtype)`` rounds them as ``torch.tensor(scalings, dtype=dtype)`` does."""
+    return torch.tensor(scalings, dtype=torch.float32)
 
 
 class NeuRADHashEncoding(nn.Module):
@@ -82,12 +87,14 @@ class NeuRADHashEncoding(nn.Module):
             num_levels=s.num_levels, min_res=s.base_res, max_res=s.max_res, log2_hashmap_size=s.log2_hashmap_size,
             features_per_level=s.hashgrid_dim, n_input_dims=3, compute_dtype=compute_dtype,
         )
+        self.register_buffer("static_scalings", feature_scalings(self.static_grid.scalings), persistent=False)
         if self.has_actors:
             self.actor_grid = HashEncoding(
                 num_levels=a.num_levels, min_res=a.base_res, max_res=a.max_res,
                 log2_hashmap_size=a.log2_hashmap_size, features_per_level=a.hashgrid_dim, n_input_dims=4,
                 compute_dtype=compute_dtype,
             )
+            self.register_buffer("actor_scalings", feature_scalings(self.actor_grid.scalings), persistent=False)
 
     @property
     def has_actors(self) -> bool:
@@ -106,7 +113,7 @@ class NeuRADHashEncoding(nn.Module):
         static_pos = self.static_contraction(GaussiansStd(mean=mean, std=std))
         static_feats = _rescale_grid_features(
             self.static_grid(static_pos.mean, tables), static_pos.std,
-            self.static_grid.scalings, cfg.static.num_levels, cfg.static.hashgrid_dim,
+            self.static_scalings, cfg.static.num_levels, cfg.static.hashgrid_dim,
         )
         if not self.has_actors or candidates is None:
             return static_feats, directions
@@ -128,7 +135,7 @@ class NeuRADHashEncoding(nn.Module):
         id4 = (actor_id.to(pos_box.dtype) / self.n_actors)[..., None]
         actor_feats = _rescale_grid_features(
             self.actor_grid(torch.cat([actor_pos.mean, id4], dim=-1), tables), actor_pos.std,
-            self.actor_grid.scalings, cfg.actor.num_levels, cfg.actor.hashgrid_dim,
+            self.actor_scalings, cfg.actor.num_levels, cfg.actor.hashgrid_dim,
         )
         pad = self.get_out_dim() - actor_feats.shape[-1]
         if pad > 0:

@@ -293,21 +293,27 @@ class NeuRadarModel(nn.Module):
             outputs["intensity"] = torch.sigmoid(decoded[..., :1])
             outputs["ray_drop_logits"] = decoded[..., 1:2]
 
-        radar_feats = layout.radar(features)
-        if radar_feats is not None:
-            ns, nr = layout.num_radar_scans, layout.rays_per_scan
-            depth = layout.radar(outputs["depth"]).reshape(ns, nr, 1)
-            spher = layout.radar(ray_bundle.metadata["directions_spher"]).reshape(ns, nr, 2)
-            geometry = spherical_to_cartesian(depth, spher[..., 1:2], spher[..., 0:1])
+        if layout.num_radar:
+            radar_feats, geometry = self.radar_tokens(features, outputs["depth"], ray_bundle, layout)
             with trace.span("radar_decoder"):
-                decoded = self._decode_radar(radar_feats.reshape(ns, nr, radar_feats.shape[-1]), geometry,
-                                             generator if train else None)
+                decoded = self.decode_radar(radar_feats, geometry, generator if train else None)
             outputs["radar_output"], outputs["radar_angles"] = decoded[:2]
             if len(decoded) == 3:  # the set decoder's intermediate layers, [D-1, ns, Q, 7]
                 outputs["radar_aux_outputs"] = decoded[2]
         return outputs
 
-    def _decode_radar(self, feats: torch.Tensor, geometry: torch.Tensor, generator: Optional[torch.Generator]):
+    def radar_tokens(self, features: torch.Tensor, depth: torch.Tensor, ray_bundle: RayBundle,
+                     layout: SegmentLayout) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The radar decoder's inputs from the field's per-ray ``features`` and ``depth`` of a merged
+        bundle: the radar rays' features [ns, nr, C] and their points [ns, nr, 3] (the depth along each
+        ray's azimuth and elevation)."""
+        ns, nr = layout.num_radar_scans, layout.rays_per_scan
+        feats = layout.radar(features)
+        depth = layout.radar(depth).reshape(ns, nr, 1)
+        spher = layout.radar(ray_bundle.metadata["directions_spher"]).reshape(ns, nr, 2)
+        return feats.reshape(ns, nr, feats.shape[-1]), spherical_to_cartesian(depth, spher[..., 1:2], spher[..., 0:1])
+
+    def decode_radar(self, feats: torch.Tensor, geometry: torch.Tensor, generator: Optional[torch.Generator] = None):
         """The radar decoder over [ns, nr] tokens in ``radar_decode_chunks`` groups of scans
         (attention never crosses scans). With gradients each group of the per-ray decoder is
         recomputed in the backward pass, as the JAX package remats it; the set decoder keeps its

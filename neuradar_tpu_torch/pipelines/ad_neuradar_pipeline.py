@@ -18,17 +18,25 @@ with numpy and scipy, as the JAX package does. Under a bf16 ``compute_dtype``
 with ``hoist_table_cast`` the train loss, the eval loss and every render cast
 the hash tables once (``NeuRadarModel.cast_tables``) and hand them down, as
 the JAX package's ``_cast_variables`` / ``make_train_loss_fn`` do.
+
+On CUDA a radar request without actor edits replays CUDA graphs (``render_radar``): its device work is
+captured once a request shape, in two graphs, and every later request of that shape writes its scan
+ids into the graphs' input and replays them, so the card no longer waits on the host's op-by-op
+launches. The graphs run the eager path's own functions (``_radar_tokens`` and the model's
+``decode_radar``) on the live parameters; every other request takes that eager path.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import threading
 import time
 from dataclasses import dataclass, field
-from typing import Callable, Dict, Optional, Sequence, Tuple, Union
+from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
+from torch import nn
 
 from neuradar_tpu_torch.cameras.cameras import Cameras, generate_camera_rays
 from neuradar_tpu_torch.data.datamanager import (
@@ -82,6 +90,10 @@ class ADNeuRadarPipeline:
                                        decode_radar=self.layout.num_radar_scans > 0)
         self.model.to(self.device).eval()
         init_params(self.model, seed)
+        self._radar_graphs: Dict[tuple, _RadarGraphs] = {}
+        self._graph_pool = None  # one memory pool for every radar graph of this pipeline
+        self._capture_stream: Optional[torch.cuda.Stream] = None
+        self._graph_lock = threading.Lock()  # a request writes, replays and clones alone
 
     def make_train_loss_fn(self) -> Callable:
         """loss_fn(host_batch, generator) -> (total, loss_dict, metrics): the training forward
@@ -254,17 +266,105 @@ class ADNeuRadarPipeline:
                      actor_edits: Optional[ActorEdits] = None) -> Dict[str, torch.Tensor]:
         """Multi-Bernoulli radar output: [n_mb, 7] for one scan index, or [n_scans, n_mb, 7] for a
         sequence rendered as one batch; n_mb is the scan's rays, or the set decoder's queries. The
-        actors are edited by ``actor_edits``. The span ``request/radar`` covers it."""
+        actors are edited by ``actor_edits``. The span ``request/radar`` covers it. On CUDA without
+        actor edits the request replays the CUDA graphs of its shape (``_replay_radar``); counters
+        ``cuda_graph/replays``, ``cuda_graph/captures``, and ``cuda_graph/eager`` for a CUDA request
+        that took the eager path."""
         with trace.span("request/radar", unit=True):
             single = isinstance(scan_idx, (int, np.integer))
-            with trace.host_sync("scan_ids"):
-                ids = torch.as_tensor([scan_idx] if single else list(scan_idx), dtype=torch.long, device=self.device)
-            radars = self.tables.radars
-            layout = SegmentLayout(num_radar_scans=len(ids), rays_per_scan=radars.rays_per_scan)
-            outputs = self.model.get_outputs(merge_modality_bundles(None, None, radars.generate_rays(ids)), layout,
-                                             tables=self.model.cast_tables(), actor_edits=actor_edits)
-            radar_output = outputs["radar_output"]
+            scans = [int(scan_idx)] if single else [int(s) for s in scan_idx]
+            if self.device.type == "cuda" and actor_edits is None:
+                radar_output = self._replay_radar(scans)
+            else:
+                if self.device.type == "cuda":
+                    trace.count("cuda_graph/eager")
+                radar_output = self._radar_eager(self._scan_ids(scans), self._radar_layout(len(scans)), actor_edits)
             return {"radar_output": radar_output[0] if single else radar_output}
+
+    def _radar_layout(self, n_scans: int) -> SegmentLayout:
+        return SegmentLayout(num_radar_scans=n_scans, rays_per_scan=self.tables.radars.rays_per_scan)
+
+    def _scan_ids(self, scans: List[int], out: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """The scan ids as a long tensor on the device (into ``out`` if given), copied from pinned host
+        memory on CUDA so that the host does not wait for the card."""
+        host = torch.tensor(scans, dtype=torch.long, pin_memory=self.device.type == "cuda")
+        if out is None:
+            out = torch.empty(len(scans), dtype=torch.long, device=self.device)
+        return out.copy_(host, non_blocking=True)
+
+    def _radar_tokens(self, ids: torch.Tensor, layout: SegmentLayout,
+                      actor_edits: Optional[ActorEdits] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The scans' rays, the hoisted table cast, the field's outputs (every nff chunk) and the radar
+        decoder's inputs: features [ns, nr, C] and points [ns, nr, 3]."""
+        bundle = merge_modality_bundles(None, None, self.tables.radars.generate_rays(ids))
+        outputs = self.model.get_nff_outputs(bundle, layout, tables=self.model.cast_tables(), actor_edits=actor_edits)
+        return self.model.radar_tokens(outputs["features"], outputs["depth"], bundle, layout)
+
+    def _radar_eager(self, ids: torch.Tensor, layout: SegmentLayout,
+                     actor_edits: Optional[ActorEdits] = None) -> torch.Tensor:
+        """The eager path: ``_radar_tokens``, then the decoder inside the span ``radar_decoder``; the radar
+        output [n_scans, n_mb, 7]."""
+        feats, geometry = self._radar_tokens(ids, layout, actor_edits)
+        with trace.span("radar_decoder"):
+            return self.model.decode_radar(feats, geometry)[0]
+
+    def _radar_reads(self, modules: List[nn.Module]) -> Tuple[int, ...]:
+        """Where the radar graphs read their weights and sensor tables: the data pointers of the
+        parameters and buffers of ``modules`` (the model's, listed at capture), the identities of their
+        submodules (a replaced submodule makes another tree), and the radar tables' data pointers.
+        In-place updates (an optimizer's step, ``load_state_dict``) keep them; a replaced tensor changes
+        them. It reads the modules' own dictionaries: a walk of the model costs ~4x as much a request."""
+        reads = []
+        for m in modules:
+            reads += [t.data_ptr() for t in m._parameters.values() if t is not None]
+            reads += [t.data_ptr() for t in m._buffers.values() if t is not None]
+            reads += map(id, m._modules.values())
+        radars = self.tables.radars
+        tables = (radars.radar_to_worlds, radars.radar_type, radars.fov_directions, radars.times,
+                  *radars.metadata.values())
+        return tuple(reads + [t.data_ptr() for t in tables if t is not None])
+
+    def _replay_radar(self, scans: List[int]) -> torch.Tensor:
+        """The radar output [n_scans, n_mb, 7] of ``scans`` from the CUDA graphs of the request's shape
+        (the number of scans, the rays a scan, the decoder's class), captured on its first request and
+        again when a tensor they read was replaced. Under the lock: the scan ids written into the graphs'
+        input, graph (a) replayed, graph (b) replayed inside the span ``radar_decoder``, and the output
+        cloned, so that no two requests share it. Each replay adds its capture's ``launches/<symbol>``."""
+        key = (len(scans), self.tables.radars.rays_per_scan, type(self.model.radar_decoder))
+        with self._graph_lock:
+            graphs = self._radar_graphs.get(key)
+            if (graphs is None or graphs.modules[0] is not self.model
+                    or self._radar_reads(graphs.modules) != graphs.reads):
+                self._radar_graphs.pop(key, None)
+                graphs = self._radar_graphs[key] = self._capture_radar(scans)
+            self._scan_ids(scans, out=graphs.ids)
+            _replay(graphs.tokens, graphs.tokens_launches)
+            with trace.span("radar_decoder"):
+                _replay(graphs.decoder, graphs.decoder_launches)
+            return graphs.output.clone()
+
+    def _capture_radar(self, scans: List[int]) -> "_RadarGraphs":
+        """Capture a request shape's two graphs into the pipeline's one memory pool: (a) from the static
+        scan ids to the decoder's inputs (``_radar_tokens``), (b) the decoder (``decode_radar``). One eager
+        run on the capture stream first makes what the path creates lazily there (the kernel library,
+        cuBLAS's handle and its workspace for that stream, which a capture would otherwise allocate anew
+        and keep). Counts ``cuda_graph/captures``, one a graph."""
+        layout = self._radar_layout(len(scans))
+        ids = self._scan_ids(scans)
+        if self._graph_pool is None:
+            self._graph_pool = torch.cuda.graph_pool_handle()
+            self._capture_stream = torch.cuda.Stream(self.device)
+        stream = self._capture_stream
+        stream.wait_stream(torch.cuda.current_stream(self.device))
+        with torch.cuda.stream(stream):
+            self._radar_eager(ids, layout)
+        tokens, (feats, geometry), tokens_launches = _capture(lambda: self._radar_tokens(ids, layout),
+                                                              self._graph_pool, stream)
+        decoder, output, decoder_launches = _capture(lambda: self.model.decode_radar(feats, geometry)[0],
+                                                     self._graph_pool, stream)
+        modules = list(self.model.modules())
+        return _RadarGraphs(ids, tokens, decoder, output, tokens_launches, decoder_launches, modules,
+                            self._radar_reads(modules))
 
     def radar_points_world(self, time_s: float = 0.0, threshold: float = 0.5,
                            actor_edits: Optional[ActorEdits] = None) -> np.ndarray:
@@ -461,6 +561,43 @@ class ADNeuRadarPipeline:
             "gospa_missed_mean": float(np.mean(misses)) if misses else 0.0,
             "gospa_false_mean": float(np.mean(falses)) if falses else 0.0,
         }
+
+
+@dataclass
+class _RadarGraphs:
+    """The CUDA graphs of one radar request shape: (a) ``tokens`` from the static scan ids ``ids`` to
+    the decoder's inputs, (b) ``decoder`` to the static ``output``; the launches each capture counted;
+    the model's modules at capture (the root first) and what the graphs read (``_radar_reads``)."""
+
+    ids: torch.Tensor
+    tokens: torch.cuda.CUDAGraph
+    decoder: torch.cuda.CUDAGraph
+    output: torch.Tensor
+    tokens_launches: Dict[str, int]
+    decoder_launches: Dict[str, int]
+    modules: List[nn.Module]
+    reads: Tuple[int, ...]
+
+
+def _capture(fn: Callable, pool, stream: torch.cuda.Stream) -> tuple:
+    """(the CUDA graph of ``fn``'s device work, captured on ``stream`` into ``pool``, its static outputs,
+    the ``launches/<symbol>`` its capture counted); counts ``cuda_graph/captures``."""
+    graph = torch.cuda.CUDAGraph()
+    with trace.tally() as counts:
+        with torch.cuda.graph(graph, pool=pool, stream=stream, capture_error_mode="thread_local"):
+            out = fn()
+    trace.count("cuda_graph/captures")
+    return graph, out, {name: n for name, n in counts.items() if name.startswith("launches/")}
+
+
+def _replay(graph: torch.cuda.CUDAGraph, launches: Dict[str, int]) -> None:
+    """Replay ``graph`` inside the operator range ``cuda_graph/replay`` (so that the profiler counts its
+    kernels under the spans around it); count ``cuda_graph/replays`` and the launches its capture made."""
+    with trace.operator_range("cuda_graph/replay"):
+        graph.replay()
+    trace.count("cuda_graph/replays")
+    for name, n in launches.items():
+        trace.count(name, n)
 
 
 def _gaussian_kernel1d(size: int = 11, sigma: float = 1.5) -> np.ndarray:

@@ -8,7 +8,8 @@ parent's id, the id of the step or request it belongs to, the thread, and its ho
 recorded on the current stream around the span, which ``snapshot()`` resolves with one synchronize.
 ``count(name, n)`` adds to a counter of the current step or request; ``host_sync(site)`` is the
 span ``host_sync/<site>`` around one call that makes the host wait for the card, and counts
-``host_syncs``.
+``host_syncs``. Inside ``tally()`` a thread's counts go to a dictionary of their own instead, recording
+or not: a CUDA graph's capture launches nothing, and each replay adds what its capture counted.
 
 A span opened with ``unit=True`` is a step or a request (``train/step``, ``request/radar``,
 ``request/camera``): while recording it draws the next id of a sequence, which goes into
@@ -168,11 +169,25 @@ class Recorder:
                 self._open_unit = outer
 
     def count(self, name: str, n: int = 1) -> None:
+        tally = getattr(self._local, "tally", None)
+        if tally is not None:
+            tally[name] = tally.get(name, 0) + n
+            return
         if not self.active():
             return
         unit = self._context()[1]
         with self._lock:
             self._counters[(name, unit)] = self._counters.get((name, unit), 0) + n
+
+    @contextmanager
+    def tally(self) -> Iterator[Dict[str, int]]:
+        outer = getattr(self._local, "tally", None)
+        counts: Dict[str, int] = {}
+        self._local.tally = counts
+        try:
+            yield counts
+        finally:
+            self._local.tally = outer
 
     @contextmanager
     def recording(self) -> Iterator[None]:
@@ -208,6 +223,14 @@ def span(name: str, device: bool = False, unit: bool = False):
     return RECORDER.span(name, device, unit)
 
 
+def operator_range(name: str):
+    """A profiler range of an operator's scope around work that launches kernels through no operator
+    (a CUDA graph's replay). The profiler links a kernel to the innermost operator open at its launch,
+    and ``span``'s ``record_function`` is a user range, to which it links none; inside this range a
+    replayed graph's kernels count under the spans around it, as an operator's do. Not logged."""
+    return torch._C._profiler._RecordFunctionFast(name)
+
+
 @contextmanager
 def host_sync(site: str) -> Iterator[None]:
     """The span ``host_sync/<site>`` around one call that makes the host wait for the card; counts
@@ -220,6 +243,12 @@ def host_sync(site: str) -> Iterator[None]:
 def count(name: str, n: int = 1) -> None:
     """Add ``n`` to the counter ``name`` of the current step or request, while recording."""
     RECORDER.count(name, n)
+
+
+def tally():
+    """The counts this thread makes inside the block, by name, kept out of the window whether it records
+    or not (a CUDA graph's capture: its launches run at each replay)."""
+    return RECORDER.tally()
 
 
 def recording():

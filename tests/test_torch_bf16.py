@@ -290,7 +290,7 @@ def test_grouped_radar_decoding_matches_ungrouped(dtype):
         cfg.radar_decode_chunks = groups
         model.zero_grad()
         f = feats.clone().requires_grad_(True)
-        out, ang = model._decode_radar(f, geometry, torch.Generator().manual_seed(11))
+        out, ang = model.decode_radar(f, geometry, torch.Generator().manual_seed(11))
         out.backward(cot)
         runs.append((out.detach(), ang.detach(), f.grad,
                      *[p.grad.clone() for p in decoder.parameters() if p.grad is not None]))

@@ -105,10 +105,9 @@ def test_request_spans_nest_and_share_an_id(pipeline):
         pipeline.render_radar(1)
     snap = trace.snapshot()
     _check_nesting(snap, "request/radar", {
-        "host_sync/scan_ids": {"request/radar"}, "proposal_sampling": {"request/radar"},
+        "proposal_sampling": {"request/radar"},
         "field": {"request/radar"}, "composite_sky": {"request/radar"}, "radar_decoder": {"request/radar"},
-        "hash_encode": {"proposal_sampling", "field"}, "host_sync/hash_scalings": {"hash_encode"},
-        "host_sync/feature_scalings": {"proposal_sampling", "field"}})
+        "hash_encode": {"proposal_sampling", "field"}, "host_sync/hash_scalings": {"hash_encode"}})
     assert {"field", "radar_decoder", "hash_encode"} <= {s.name for s in snap.spans}
 
     c2w = pipeline.outputs.camera_to_worlds[0]
@@ -120,8 +119,7 @@ def test_request_spans_nest_and_share_an_id(pipeline):
         "proposal_sampling": {"request/camera"}, "field": {"request/camera"}, "composite_sky": {"request/camera"},
         "rgb_decoder": {"request/camera"}, "host_sync/render_pose": {"request/camera"},
         "host_sync/pose_camera": {"request/camera"}, "host_sync/camera_types": {"request/camera"},
-        "hash_encode": {"proposal_sampling", "field"}, "host_sync/hash_scalings": {"hash_encode"},
-        "host_sync/feature_scalings": {"proposal_sampling", "field"}})
+        "hash_encode": {"proposal_sampling", "field"}, "host_sync/hash_scalings": {"hash_encode"}})
     assert [s.name for s in snap.spans].count("host_sync/render_pose") == 1
     assert [s.name for s in snap.spans].count("rgb_decoder") == 1
 
@@ -186,6 +184,39 @@ def test_train_step_spans_and_syncs(scene):
     syncs = [s for s in snap.spans if s.name.startswith("host_sync/")]
     assert snap.count("host_syncs", [step]) == len(syncs) > 0
     assert snap.count("host_syncs", []) == 0
+
+
+def test_no_scalings_or_scan_id_syncs(pipeline, scene):
+    """(f) A tiny ``render_radar`` of one scan and of a batch, and a tiny train step, open no
+    ``host_sync/feature_scalings`` (the level scalings are a buffer of the encoding) and no
+    ``host_sync/scan_ids`` (the ids are copied from pinned memory on the card)."""
+    trainer = Trainer(_config(), scene, "cpu")
+    trainer.setup(prefetch=False)
+    with trace.recording():
+        pipeline.render_radar(1)
+        pipeline.render_radar([0, 2])
+        trainer.train_step()
+        names = {s.name for s in trace.snapshot().spans}
+    assert {"request/radar", "train/step", "hash_encode"} <= names
+    assert not names & {"host_sync/feature_scalings", "host_sync/scan_ids"}
+
+
+def test_tally_keeps_counts_out_of_the_window():
+    """(g) Inside ``trace.tally()`` a thread's counts go to the tally, recording or not, and the window
+    keeps none of them; nested tallies each keep their own."""
+    with trace.recording():
+        trace.count("launches/composite_sky_fwd")
+        with trace.tally() as outer:
+            build.check(0, "composite_sky_fwd")
+            with trace.tally() as inner:
+                trace.count("launches/hash_encode_fwd", 3)
+            trace.count("host_syncs")
+        snap = trace.snapshot()
+    assert outer == {"launches/composite_sky_fwd": 1, "host_syncs": 1} and inner == {"launches/hash_encode_fwd": 3}
+    assert snap.counters == {("launches/composite_sky_fwd", None): 1}
+    with trace.tally() as off:
+        trace.count("cuda_graph/captures")
+    assert off == {"cuda_graph/captures": 1}
 
 
 def test_launches_are_counted_by_build_check():
