@@ -3,6 +3,7 @@
     python3 chip_smoke.py          # every phase
     python3 chip_smoke.py splat    # device, build, k5 and train_splat only
     python3 chip_smoke.py k4       # device, build and train_presets (with K4's rows) only
+    python3 chip_smoke.py nerfacto # device, build and K4's rows on nerfacto-huge's train step only
 
 Phases, one line each before the final JSON line:
   1. device: requires CUDA; prints the card's name and power limit (nvidia-smi)
@@ -944,7 +945,8 @@ def _k4_capture(fn) -> tuple:
     finally:
         hash_encode_op.hash_encode = op
     return fwd, bwd, {"encodes": sum(s.name == "hash_encode" for s in snap.spans),
-                      "hash_encode_fwd": snap.total("launches/hash_encode_fwd"), "host_syncs": snap.total("host_syncs")}
+                      "hash_encode_fwd": snap.total("launches/hash_encode_fwd"),
+                      "hash_encode_bwd": snap.total("launches/hash_encode_bwd"), "host_syncs": snap.total("host_syncs")}
 
 
 def _k4_grid(cap) -> str:
@@ -1061,6 +1063,43 @@ def _k4_rows(trainer: Trainer, name: str) -> list:
         static = [r for r in rows if r["name"] == "hash_encode_bwd" and r["shape"][1] == 3 and r["pos_grad"]]
         _expect(any(r["pos_grad_ref_norm"] > 0 for r in static),
                 f"{name}: no static grid's positions' gradient was checked on nonzero values: {static}")
+    return rows
+
+
+NERFACTO_PRESET = "nerfacto-huge"
+NERFACTO_START_STEP = 5000
+
+
+def nerfacto_k4_rows(device: torch.device) -> list:
+    """K4's rows on nerfacto-huge's own encodes (path train_nerfacto-huge): the preset at its published
+    batch (16,384 rays) on the VoD-camera scene, its hash tables U(-0.1, 0.1), one warm-up step from step
+    5,000 and one captured step. Its three grids (two proposal grids and the field's, float32 rows of 2
+    features) each take one forward and one backward launch an encode, the backward with the positions'
+    gradient (the camera optimizer moves every sample)."""
+    trainer = get_method(NERFACTO_PRESET).setup(vod_sensor_scene_outputs(), device)
+    gen = torch.Generator(device=device).manual_seed(0)
+    with torch.no_grad():
+        for m in trainer.model.modules():
+            if isinstance(m, encodings.HashEncoding):
+                m.hash_table.uniform_(-0.1, 0.1, generator=gen)
+    trainer.step = NERFACTO_START_STEP
+    trainer.train_step()
+    fwd, bwd, counts = _k4_capture(trainer.train_step)
+    trainer.shutdown()
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    path = f"train_{NERFACTO_PRESET}"
+    phase("k4_encodes", path=path, **counts)
+    _expect(counts["encodes"] == counts["hash_encode_fwd"] == counts["hash_encode_bwd"] == 3,
+            f"{path}: an encode launched no kernel, or more than one: {counts}")
+    _expect(len(bwd) == 3 and all(c["pos_grad"] and c["table_grad"] for c in bwd.values()),
+            f"{path}: every grid's backward takes the positions' and the table's gradient")
+    rows = []
+    for caps, make, symbol in ((fwd, _k4_fwd_row, "hash_encode_fwd"), (bwd, _k4_bwd_row, "hash_encode_bwd")):
+        for key in list(caps):
+            rows.append({**make(caps.pop(key), path), "launches": counts[symbol]})
+            torch.cuda.empty_cache()
     return rows
 
 
@@ -1859,11 +1898,17 @@ def main(argv=None) -> int:
     build.load()
     phase("build", library=str(lib.name))
 
+    if argv == ["nerfacto"]:
+        print(json.dumps({"kernels": nerfacto_k4_rows(device)}))
+        print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                                 "count": torch.cuda.device_count()}}))
+        return 0
     if argv == ["k4"]:
         # K4 alone: the presets' steps, eval frame and radar scan, with K4's rows on their own encodes
         rows, launches = train_presets(device)
         for row in rows:
             row["launches"] = launches[row["path"]].get(_symbol(row), 0)
+        rows.extend(nerfacto_k4_rows(device))
         print(json.dumps({"kernels": rows}))
         print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                                  "count": torch.cuda.device_count()}}))
@@ -1928,6 +1973,7 @@ def main(argv=None) -> int:
 
     preset_rows, preset_launches = train_presets(device)
     rows.extend(preset_rows)
+    rows.extend(nerfacto_k4_rows(device))
 
     # VoD's preset on the synthetic scene in VoD's sensors: 127,744 rays a step, 4,400 a radar scan;
     # then the shifted-view FIDs of 2 eval frames (8 renders each: 3 lane shifts, 1 vertical, 4 actor edits)

@@ -29,6 +29,10 @@ class Frustums:
     ends: torch.Tensor
     pixel_area: torch.Tensor
 
+    def get_positions(self) -> torch.Tensor:
+        """Centre of each frustum: [R, S, 3]."""
+        return self.origins[..., None, :] + self.directions[..., None, :] * ((self.starts + self.ends) / 2.0)
+
     def get_fast_isotropic_gaussian(self, num_multisamples: int = 1) -> GaussiansStd:
         """Isotropic gaussian approximation of each conical frustum:
         mean [R, S, M, 3], std [R, S, M, 1]."""

@@ -12,7 +12,11 @@ without the VGG loss. ``neuradar-vod`` is neuradar on View-of-Delft; ``neurad-nu
 those datasets' parsers. ``splatfacto`` is 3D Gaussian splatting on the synthetic scene (262,144
 gaussians, 256 a tile) with its own trainer (``engine/splatfacto_trainer.py``: the config's
 ``setup(outputs, device)`` builds it), and ``splatfacto-big`` the same at 1,048,576 gaussians and
-512 a tile. The nerfacto family is not here.
+512 a tile. ``nerfacto``, ``nerfacto-big`` and ``nerfacto-huge`` are nerfstudio's camera-only
+nerfacto on the synthetic scene with their own trainer (``engine/nerfacto_trainer.py``, built by the
+config's ``setup(outputs, device)``); ``nerfacto-huge`` takes nerfstudio's published batch, proposal
+networks, anneal and eval chunk, which the JAX package's preset leaves at nerfacto's defaults. The lidar variants (``lidar-nerfacto``, ``nerfacto-lidar``) and
+``nerfacto-data`` (the nerfstudio-format parser) are not ported.
 """
 
 from __future__ import annotations
@@ -29,9 +33,11 @@ from neuradar_tpu_torch.data.dataparsers.synthetic import SyntheticDataParserCon
 from neuradar_tpu_torch.data.dataparsers.vod import VodDataParserConfig
 from neuradar_tpu_torch.data.dataparsers.wod import WodDataParserConfig
 from neuradar_tpu_torch.data.dataparsers.zod import ZodDataParserConfig
+from neuradar_tpu_torch.engine.nerfacto_trainer import NerfactoTrainerConfig
 from neuradar_tpu_torch.engine.optimizers import default_optimizer_groups
 from neuradar_tpu_torch.engine.splatfacto_trainer import SplatfactoTrainerConfig
 from neuradar_tpu_torch.engine.trainer import TrainerConfig
+from neuradar_tpu_torch.models.nerfacto import NerfactoModelConfig
 from neuradar_tpu_torch.models.splatfacto import SplatfactoConfig
 from neuradar_tpu_torch.pipelines.ad_neuradar_pipeline import ADNeuRadarPipelineConfig
 
@@ -185,6 +191,46 @@ def _splatfacto_big() -> SplatfactoTrainerConfig:
     return cfg
 
 
+def _nerfacto() -> NerfactoTrainerConfig:
+    return NerfactoTrainerConfig(dataparser=SyntheticDataParserConfig())
+
+
+def _nerfacto_big() -> NerfactoTrainerConfig:
+    """Longer schedule, wider MLPs, denser sampling, a larger grid."""
+    cfg = _nerfacto()
+    cfg.method_name = "nerfacto-big"
+    cfg.max_num_iterations = 100000
+    cfg.model = NerfactoModelConfig(
+        num_nerf_samples_per_ray=128, num_proposal_samples_per_ray=(512, 256),
+        hidden_dim=128, hidden_dim_color=128, appearance_embedding_dim=128,
+        max_res=4096, log2_hashmap_size=21,
+    )
+    return cfg
+
+
+def _nerfacto_huge() -> NerfactoTrainerConfig:
+    """nerfacto at its largest published widths: a 16-level grid of 2^21 rows to resolution 8,192,
+    256-wide MLPs, 512 + 512 proposal samples and 64 field samples a ray. Where the JAX package's
+    preset keeps nerfacto's defaults, the batch (16,384 rays: 64 patches of 16 x 16), the proposal
+    networks, the anneal's 5,000 steps and the 32,768-ray eval chunks are nerfstudio's
+    (nerfstudio/configs/method_configs.py, nerfacto-huge)."""
+    cfg = _nerfacto()
+    cfg.method_name = "nerfacto-huge"
+    cfg.max_num_iterations = 100000
+    cfg.num_rgb_patches = 64
+    cfg.model = NerfactoModelConfig(
+        num_nerf_samples_per_ray=64, num_proposal_samples_per_ray=(512, 512),
+        hidden_dim=256, hidden_dim_color=256, appearance_embedding_dim=32,
+        max_res=8192, log2_hashmap_size=21,
+        proposal_net_args_list=(
+            {"hidden_dim": 16, "log2_hashmap_size": 17, "num_levels": 5, "max_res": 512, "use_linear": False},
+            {"hidden_dim": 16, "log2_hashmap_size": 17, "num_levels": 7, "max_res": 2048, "use_linear": False},
+        ),
+        proposal_weights_anneal_max_num_iters=5000, eval_num_rays_per_chunk=1 << 15,
+    )
+    return cfg
+
+
 method_configs: Dict[str, Callable[[], object]] = {
     "neuradar": _neuradar,
     "neuradar-set": _neuradar_set,
@@ -205,6 +251,9 @@ method_configs: Dict[str, Callable[[], object]] = {
     "neurad-wod": _neurad_on(WodDataParserConfig, "neurad-wod"),
     "splatfacto": _splatfacto,
     "splatfacto-big": _splatfacto_big,
+    "nerfacto": _nerfacto,
+    "nerfacto-big": _nerfacto_big,
+    "nerfacto-huge": _nerfacto_huge,
 }
 method_descriptions = {
     "neuradar": "NeuRadar, the paper's preset: ZOD camera + lidar + radar, bf16 in 8 chunks (needs zod data).",
@@ -226,12 +275,15 @@ method_descriptions = {
     "neurad-wod": "NeuRAD on the Waymo Open Dataset: front camera, column rolling shutter, top lidar (needs data).",
     "splatfacto": "3D Gaussian splatting on the synthetic scene: 262,144 gaussians, SH degree 3, 256 a tile.",
     "splatfacto-big": "3D Gaussian splatting at 1,048,576 gaussians and 512 a tile (splatfacto-big).",
+    "nerfacto": "nerfstudio's nerfacto on the synthetic scene: camera only, hash grid and two proposal rounds.",
+    "nerfacto-big": "nerfacto with 128-wide MLPs, a 2^21-row grid to 4,096 and 512 + 256 proposal samples.",
+    "nerfacto-huge": "nerfacto at its largest: 256-wide MLPs, a 2^21-row grid to 8,192, 16,384 rays a step.",
 }
 
 
 def get_method(name: str):
-    """A fresh config of the preset ``name``: a ``TrainerConfig``, or a ``SplatfactoTrainerConfig``
-    for the splatfacto presets."""
+    """A fresh config of the preset ``name``: a ``TrainerConfig``, a ``SplatfactoTrainerConfig`` for
+    the splatfacto presets or a ``NerfactoTrainerConfig`` for the nerfacto presets."""
     if name not in method_configs:
         raise KeyError(f"unknown method {name!r}; the port has {sorted(method_configs)}")
     return method_configs[name]()

@@ -1,7 +1,8 @@
 """Scene contraction (port of the JAX package's field_components/spatial_distortions.py).
 
 The L-inf MipNeRF-360 contraction maps unbounded space to [-2, 2]^3 and then
-linearly to [0, 1]^3; gaussian blobs get the ZipNeRF linearized std update.
+linearly to [0, 1]^3; gaussian blobs get the ZipNeRF linearized std update, points
+(nerfacto's sample centres) are contracted alone.
 """
 
 from __future__ import annotations
@@ -30,3 +31,12 @@ class ScaledSceneContraction:
     def __call__(self, g: GaussiansStd) -> GaussiansStd:
         g = contract_gaussians(GaussiansStd(mean=g.mean / self.scale, std=g.std / self.scale))
         return GaussiansStd(mean=(g.mean + 2.0) / 4.0, std=g.std / 4.0)
+
+
+def contract_points(x: torch.Tensor, scale: float) -> torch.Tensor:
+    """Points x / ``scale`` contracted (identity inside the unit L-inf ball, (2 - 1/|x|) x/|x|
+    outside) and normalized to [0, 1]^3."""
+    x = x / scale
+    mag = torch.amax(torch.abs(x), dim=-1, keepdim=True)
+    clamped = torch.clamp(mag, min=1.0)
+    return (torch.where(mag < 1, x, (2 - 1 / clamped) * (x / clamped)) + 2.0) / 4.0

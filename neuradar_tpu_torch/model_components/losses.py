@@ -1,6 +1,6 @@
-"""Training losses of the NeuRadar model (port of the JAX package's
-model_components/losses.py: the ZipNeRF interlevel loss, the MipNeRF-360
-distortion loss and their helpers, all on dense [R, S(+1)] tensors).
+"""Training losses (port of the JAX package's model_components/losses.py: NeuRadar's ZipNeRF
+interlevel loss, nerfacto's MipNeRF-360 interlevel loss, the MipNeRF-360 distortion loss and their
+helpers, all on dense [R, S(+1)] tensors).
 """
 
 from __future__ import annotations
@@ -10,6 +10,8 @@ from typing import Sequence, Tuple
 import torch
 
 from neuradar_tpu_torch.cameras.rays import RaySamples
+
+EPS = 1e-7
 
 
 def ray_samples_to_sdist(ray_samples: RaySamples) -> torch.Tensor:
@@ -28,6 +30,38 @@ def lossfun_distortion(t: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 def distortion_loss_sdist(sdist: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
     return torch.mean(lossfun_distortion(sdist, weights))
+
+
+def distortion_loss(weights_list: Sequence[torch.Tensor], ray_samples_list: Sequence[RaySamples]) -> torch.Tensor:
+    """The distortion of the final round's histogram, averaged over the rays."""
+    return distortion_loss_sdist(ray_samples_to_sdist(ray_samples_list[-1]), weights_list[-1][..., 0])
+
+
+def _outer_measure(t0: torch.Tensor, t1: torch.Tensor, y1: torch.Tensor) -> torch.Tensor:
+    """For each bin of the edges t0 [R, S0+1], the y1 mass [R, S1] of every bin of t1 [R, S1+1]
+    that overlaps it."""
+    cy1 = torch.cat([torch.zeros_like(y1[..., :1]), torch.cumsum(y1, dim=-1)], dim=-1)
+    sr = torch.searchsorted(t1.contiguous(), t0.contiguous(), right=True)
+    last = t1.shape[-1] - 1
+    cy1_lo = torch.gather(cy1, -1, torch.clamp(sr - 1, 0, last))
+    cy1_hi = torch.gather(cy1, -1, torch.clamp(sr, 0, last))
+    return cy1_hi[..., 1:] - cy1_lo[..., :-1]
+
+
+def lossfun_outer(t: torch.Tensor, w: torch.Tensor, t_env: torch.Tensor, w_env: torch.Tensor) -> torch.Tensor:
+    """Each bin's penalty for the histogram (t, w) escaping the envelope (t_env, w_env)."""
+    return torch.clamp(w - _outer_measure(t, t_env, w_env), min=0.0) ** 2 / (w + EPS)
+
+
+def interlevel_loss(weights_list: Sequence[torch.Tensor], ray_samples_list: Sequence[RaySamples]) -> torch.Tensor:
+    """MipNeRF-360's proposal loss (nerfacto's): each proposal histogram must bound the detached
+    final one from above."""
+    c = ray_samples_to_sdist(ray_samples_list[-1]).detach()
+    w = weights_list[-1][..., 0].detach()
+    loss = 0.0
+    for ray_samples, weights in zip(ray_samples_list[:-1], weights_list[:-1]):
+        loss = loss + torch.mean(lossfun_outer(c, w, ray_samples_to_sdist(ray_samples), weights[..., 0]))
+    return loss
 
 
 def _blur_stepfun(x: torch.Tensor, y: torch.Tensor, r: float) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -1,7 +1,8 @@
 """Ray samplers (port of the JAX package's model_components/ray_samplers.py).
 
-power-function spaced initial samples, then PDF resampling from each proposal
-round's weight histogram. In training the bins are stratified: each sampler
+power-function (NeuRAD) or linear-then-disparity (nerfacto) spaced initial samples, then PDF
+resampling from each proposal round's weight histogram, raised to the nerfacto anneal's exponent
+where one is given. In training the bins are stratified: each sampler
 takes its uniform jitter as a tensor, drawn beforehand by ``draw_jitter`` from
 the caller's generator (so a recomputed forward reuses the same numbers);
 without jitter the samplers are deterministic (eval).
@@ -67,6 +68,19 @@ def power_sampler(ray_bundle: RayBundle, num_samples: int, lambda_: float = -1.0
     )
 
 
+def lin_disp_piecewise_sampler(ray_bundle: RayBundle, num_samples: int,
+                               jitter: Optional[torch.Tensor] = None) -> RaySamples:
+    """Half the spacing domain linear in distance up to 1, half linear in disparity beyond
+    (nerfacto's initial sampler)."""
+    return spaced_sampler(
+        ray_bundle,
+        num_samples,
+        lambda x: torch.where(x < 1, x / 2, 1 - 1 / (2 * x)),
+        lambda x: torch.where(x < 0.5, 2 * x, 1 / (2 - 2 * x)),
+        jitter,
+    )
+
+
 def pdf_sampler(ray_bundle: RayBundle, ray_samples: RaySamples, weights: torch.Tensor, num_samples: int,
                 histogram_padding: float = 0.01, eps: float = 1e-5,
                 jitter: Optional[torch.Tensor] = None) -> RaySamples:
@@ -117,11 +131,14 @@ def proposal_network_sampler(
     num_nerf_samples_per_ray: int = 32,
     initial_sampler: Callable = power_sampler,
     jitter: Optional[Sequence[torch.Tensor]] = None,
+    anneal: Optional[float] = None,
 ) -> Tuple[RaySamples, List[torch.Tensor], List[RaySamples]]:
     """The proposal chain: round i's density_fns[i] weights the samples that
     round i + 1 resamples. ``jitter`` holds one noise tensor per round (see
-    ``draw_jitter``), or None for the deterministic chain. Returns the final
-    samples and the per-round proposal weights and samples."""
+    ``draw_jitter``), or None for the deterministic chain; ``anneal`` raises
+    the weights to that power before each resampling (0 resamples uniformly,
+    1 is the plain PDF). Returns the final samples and the per-round proposal
+    weights and samples."""
     n_rounds = len(num_proposal_samples_per_ray)
     jitter = list(jitter) if jitter is not None else [None] * (n_rounds + 1)
     weights_list: List[torch.Tensor] = []
@@ -132,5 +149,6 @@ def proposal_network_sampler(
         weights_list.append(weights)
         samples_list.append(ray_samples)
         n_next = num_proposal_samples_per_ray[i_level + 1] if i_level + 1 < n_rounds else num_nerf_samples_per_ray
-        ray_samples = pdf_sampler(ray_bundle, ray_samples, weights, n_next, jitter=jitter[i_level + 1])
+        annealed = weights if anneal is None else weights**anneal
+        ray_samples = pdf_sampler(ray_bundle, ray_samples, annealed, n_next, jitter=jitter[i_level + 1])
     return ray_samples, weights_list, samples_list

@@ -8,9 +8,9 @@ A method picks a TrainerConfig preset, dotted overrides change any field
 event logs, the checkpoints and ``final_metrics.json``. It trains on the card
 (``cuda``) unless ``--device`` says otherwise. To resume, pass the run's
 ``--load_dir <run dir>/checkpoints``: training continues to
-``--max_num_iterations``. The splatfacto presets build their own trainer
-(``SplatfactoTrainerConfig.setup``), whose run directory receives ``gaussians.npz`` in place of the
-checkpoints.
+``--max_num_iterations``. The splatfacto and nerfacto presets build their own trainers
+(``SplatfactoTrainerConfig.setup``, ``NerfactoTrainerConfig.setup``), whose run directories receive
+``gaussians.npz`` and ``checkpoints/nerfacto.pt``.
 """
 
 from __future__ import annotations
@@ -70,7 +70,8 @@ def main(argv=None) -> int:
         return 0
     parse_overrides(config, argv)
 
-    if method.startswith("splatfacto"):
+    own_trainer = hasattr(config, "setup")  # splatfacto's and nerfacto's configs build their trainers
+    if own_trainer:
         trainer = config.setup(device=device)
     else:
         trainer = Trainer(config, device=device)
@@ -78,7 +79,7 @@ def main(argv=None) -> int:
     run_dir.mkdir(parents=True, exist_ok=True)
     (run_dir / "config.json").write_text(json.dumps(config_to_jsonable(config), indent=2))
     print(f"[train] method={method} device={device} -> {run_dir}", flush=True)
-    if method.startswith("splatfacto"):
+    if own_trainer:
         metrics = trainer.train()
     else:
         trainer.setup()

@@ -27,14 +27,18 @@ from neuradar_tpu_torch.utils import trace
 DTYPES = [torch.float32, torch.bfloat16]
 DTYPE_IDS = ["float32", "bf16"]
 # every preset's grids: (d, F, log2 T, L, base resolution, max resolution); neurad's, neuradar's and
-# neuradar-vod's fields and proposal fields (the static and the actor grid each), and neurader's
-# static grids, one resolution and one hashmap bit up
+# neuradar-vod's fields and proposal fields (the static and the actor grid each), neurader's
+# static grids, one resolution and one hashmap bit up, and nerfacto-huge's field and proposal grids
+# (float32 rows of 2 features; the camera optimizer asks for the positions' gradient on each)
 GRIDS = {
     "field_static": (3, 4, 22, 8, 32, 8192),
     "field_actor": (4, 4, 17, 4, 64, 1024),
     "proposal_static": (3, 1, 20, 6, 128, 4096),
     "proposal_actor": (4, 1, 15, 4, 64, 1024),
     "neurader_field_static": (3, 4, 23, 8, 64, 16384),
+    "nerfacto_huge_field": (3, 2, 21, 16, 16, 8192),
+    "nerfacto_huge_proposal_0": (3, 2, 17, 5, 16, 512),
+    "nerfacto_huge_proposal_1": (3, 2, 17, 7, 16, 2048),
 }
 
 

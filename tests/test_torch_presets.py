@@ -38,7 +38,7 @@ from tests.test_torch_slice import RADAR_FOV, SCENE, perturb, shrink
 PORTED = ("neuradar", "neuradar-set", "neuradar-synthetic", "neurad", "neurad-scaleopt", "neurader", "neuradest",
           "neurader-scaleopt", "neuradest-scaleopt", "neurad-paper", "neurad-2x-paper", "neuradar-vod",
           "neurad-nuscenes", "neurad-pandaset", "neurad-kittimot", "neurad-argoverse2", "neurad-wod", "splatfacto",
-          "splatfacto-big")
+          "splatfacto-big", "nerfacto", "nerfacto-big", "nerfacto-huge")
 # the JAX package's options the port does not carry: its TPU and multi-device machinery (Pallas
 # switches, remat policies, the packed/dense hash-grid layouts, sharding, several steps a dispatch,
 # the profiler, the viewer), optax's optimizer state dtypes and clipping, and the field variants no
@@ -50,6 +50,23 @@ NOT_PORTED = {
     "pipeline.model.field.multisample_mode", "pipeline.model.field.num_multisamples", "pipeline.model.field.use_sdf",
     "pipeline.model.nff_remat", "pipeline.model.nff_remat_policy", "pipeline.model.normalize_depth",
     "pipeline.model.use_pallas_attention", "pipeline.model.use_pallas_composite",
+    # nerfacto's lidar variant (lidar-nerfacto: the lidar batch, its heads and depth losses), not ported
+    "num_lidar_rays", "model.predict_lidar", "model.depth_loss_type", "model.depth_loss_mult", "model.depth_sigma",
+    "model.should_decay_sigma", "model.starting_depth_sigma", "model.sigma_decay_rate", "model.intensity_loss_mult",
+    "model.ray_drop_loss_mult",
+}
+# nerfstudio's nerfacto-huge (nerfstudio/configs/method_configs.py, github.com/nerfstudio-project/nerfstudio):
+# the settings its preset publishes that the JAX package's nerfacto-huge leaves at nerfacto's defaults;
+# train_num_rays_per_batch 16,384 is 64 patches of 16 x 16 here
+NERFACTO_HUGE_PUBLISHED = {
+    "num_rgb_patches": 64,
+    "patch_size": 16,
+    "model.proposal_net_args_list": (
+        {"hidden_dim": 16, "log2_hashmap_size": 17, "num_levels": 5, "max_res": 512, "use_linear": False},
+        {"hidden_dim": 16, "log2_hashmap_size": 17, "num_levels": 7, "max_res": 2048, "use_linear": False},
+    ),
+    "model.proposal_weights_anneal_max_num_iters": 5000,
+    "model.eval_num_rays_per_chunk": 32768,
 }
 NOT_PORTED_LEAVES = {"max_norm", "moments_dtype", "mu_dtype", "dense_low_levels", "packed_dense_cells",
                      "packed_max_cells", "disable_actors", "decoder"}
@@ -81,8 +98,12 @@ def _not_ported(path: str) -> bool:
 def test_preset_matches_jax(name):
     """Every field of the preset, the class of every config and the keys of every dict (the
     optimizer groups) equal the JAX preset's; the JAX package's fields the port lacks are exactly
-    the options listed in NOT_PORTED."""
+    the options listed in NOT_PORTED. nerfacto-huge takes the published settings of
+    NERFACTO_HUGE_PUBLISHED where the JAX preset has nerfacto's defaults."""
     got, want = _leaves(get_method(name)), _leaves(j_get_method(name))
+    if name == "nerfacto-huge":
+        assert set(NERFACTO_HUGE_PUBLISHED) <= set(want)
+        want.update(NERFACTO_HUGE_PUBLISHED)
     assert not set(got) - set(want), sorted(set(got) - set(want))
     missing = sorted(p for p in set(want) - set(got) if not _not_ported(p))
     assert not missing, missing
@@ -96,8 +117,8 @@ def test_registry_and_train_listing(capsys):
     assert t_train_script.main(["--help"]) == 0
     out = capsys.readouterr().out
     assert all(f"  {name}:" in out for name in PORTED)
-    with pytest.raises(KeyError, match="nerfacto"):
-        get_method("nerfacto")
+    with pytest.raises(KeyError, match="lidar-nerfacto"):
+        get_method("lidar-nerfacto")
 
 
 def _dress(out):

@@ -231,3 +231,48 @@ def test_launches_are_counted_by_build_check():
     assert snap.counters == {("launches/composite_sky_fwd", None): 1}
     build.check(0, "composite_sky_fwd")
     assert trace.snapshot().counters == snap.counters
+
+
+def test_nerfacto_step_spans_and_counters():
+    """(h) Two tiny nerfacto train steps under recording: each ``train/step`` holds ``train/forward``
+    and ``train/optimizer``; the forward holds ``proposal_sampling`` (the proposal grids' ``hash_encode``
+    inside it), ``field``, ``nerfacto/interlevel_loss`` and ``nerfacto/distortion_loss``, and the backward
+    every grid's ``hash_encode/scatter``; the counters ``nerfacto/proposal_samples`` and
+    ``nerfacto/field_samples`` are counted once a step, both rounds' samples and the field's."""
+    from neuradar_tpu_torch.engine.nerfacto_trainer import NerfactoTrainerConfig
+    from neuradar_tpu_torch.models.nerfacto import NerfactoModelConfig
+
+    cfg = NerfactoTrainerConfig(dataparser=t_synthetic.SyntheticDataParserConfig(**SCENE), num_rgb_patches=2,
+                                patch_size=4)
+    cfg.model = NerfactoModelConfig(num_levels=3, log2_hashmap_size=8, max_res=64, num_proposal_samples_per_ray=(6, 5),
+                                    num_nerf_samples_per_ray=4, hidden_dim=8, hidden_dim_color=8,
+                                    appearance_embedding_dim=4, proposal_net_args_list=(
+                                        {"hidden_dim": 4, "log2_hashmap_size": 6, "num_levels": 2, "max_res": 32,
+                                         "use_linear": False},))
+    trainer = cfg.setup(device="cpu", prefetch=False)
+    with trace.recording():
+        for _ in range(2):
+            trainer.train_step()
+    snap = trace.snapshot()
+    steps = snap.units("train/step")
+    assert len(steps) == 2
+    by_id = {s.id: s for s in snap.spans}
+
+    def ancestors(s):
+        while s.parent is not None:
+            s = by_id[s.parent]
+            yield s.name
+
+    for step in steps:
+        mine = snap.inside([step])
+        names = [s.name for s in mine]
+        for name in ("train/forward", "train/optimizer"):
+            assert names.count(name) == 1 and by_id[[s for s in mine if s.name == name][0].parent] is step
+        for name in ("proposal_sampling", "field", "nerfacto/interlevel_loss", "nerfacto/distortion_loss"):
+            (s,) = [s for s in mine if s.name == name]
+            assert "train/forward" in list(ancestors(s)), name
+        encodes = [s for s in mine if s.name == "hash_encode"]
+        assert len(encodes) == 3 and sum("proposal_sampling" in ancestors(s) for s in encodes) == 2
+        assert names.count("hash_encode/scatter") == 3
+        assert snap.count("nerfacto/proposal_samples", [step]) == 32 * (6 + 5)
+        assert snap.count("nerfacto/field_samples", [step]) == 32 * 4
