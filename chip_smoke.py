@@ -918,7 +918,9 @@ def _k4_capture(fn) -> tuple:
     """Run ``fn`` with the encode's op wrapped and the port's counters recording. Per grid (d, L, T, F):
     the first encode's inputs, and the first encode with a gradient's inputs with its output's gradient
     (a hook; a recomputed chunk's gradient reaches the first forward's output). Returns both and the
-    counts of encodes (``hash_encode`` spans), of the forward kernel's launches and of host syncs."""
+    counts of encodes (``hash_encode`` spans), of the forward kernel's launches, of host syncs and the
+    backward's counts on the card (nonzero contributions to the tables' gradients, the atomics that
+    added them)."""
     fwd, bwd = {}, {}
     op = hash_encode_op.hash_encode
 
@@ -946,7 +948,9 @@ def _k4_capture(fn) -> tuple:
         hash_encode_op.hash_encode = op
     return fwd, bwd, {"encodes": sum(s.name == "hash_encode" for s in snap.spans),
                       "hash_encode_fwd": snap.total("launches/hash_encode_fwd"),
-                      "hash_encode_bwd": snap.total("launches/hash_encode_bwd"), "host_syncs": snap.total("host_syncs")}
+                      "hash_encode_bwd": snap.total("launches/hash_encode_bwd"), "host_syncs": snap.total("host_syncs"),
+                      "bwd_contributions": snap.total("hash_encode/bwd_contributions"),
+                      "bwd_atomics": snap.total("hash_encode/bwd_atomics")}
 
 
 def _k4_grid(cap) -> str:
@@ -991,7 +995,12 @@ def _k4_bwd_row(cap: dict, path: str) -> dict:
     of the corner gradients (rows of F values) that are exact zeros (the kernel skips them), its time
     against its bytes bound (positions and the output's gradient read once, the gradients written once;
     the lookups' distinct sectors where the positions need a gradient), the plain path's backward and the
-    library call's (``_index_add_scatter`` of the corner gradients: the table's alone)."""
+    library call's (``_index_add_scatter`` of the corner gradients: the table's alone), and the share of
+    the nonzero contributions that took an atomic of their own (the rest were summed over runs of lanes
+    in one cell). Where the table needs a gradient also: the kernel's device time with the card's counts
+    on (``counted_ms``, inside ``trace.recording()``), and its time and share of atomics on the same points
+    and output gradient in a seeded random order (``scattered_ms``, ``scattered_atomics_share``: scattered
+    rows, where neighbouring lanes rarely share a cell and the run sums seldom engage)."""
     pos, table, scal, T, L, F = (cap[k] for k in ("positions", "table", "scalings", "T", "L", "F"))
     grad_out, pos_grad, table_grad = cap["grad_out"].contiguous(), cap["pos_grad"], cap["table_grad"]
     (N, d), R = pos.shape, table.dtype
@@ -999,7 +1008,9 @@ def _k4_bwd_row(cap: dict, path: str) -> dict:
     def kernel():
         return hash_encode_bwd(grad_out, pos, table, scal, T, L, F, pos_grad, table_grad)
 
-    gp, gt = kernel()
+    with trace.recording():
+        gp, gt = kernel()
+        snap = trace.snapshot()
     rows = encodings.corner_rows(pos.to(R), scal, T, L)
     g = grad_out.to(R).reshape(N, L, F)
     grads, idxs = [g * w[..., None] for _, w in rows], [i for i, _ in rows]
@@ -1014,6 +1025,8 @@ def _k4_bwd_row(cap: dict, path: str) -> dict:
            "zero_share": float(sum((c == 0).all(dim=-1).sum() for c in grads)) / (2**d * N * L),
            "launches_per_encode": math.ceil(L / levels_per_launch(T, F, L, R)) if table_grad else 1}
     if table_grad:
+        nonzero = snap.total("hash_encode/bwd_contributions")
+        row["atomics_share"] = snap.total("hash_encode/bwd_atomics") / nonzero if nonzero else None
         exact, bound = float64_sum(grads, idxs, (L * T, F))
         err = (gt.view(L * T, F).double() - exact).abs()
         _expect(bool((err <= bound).all()), f"K4 bwd on {path}'s encode of {_k4_grid(cap)}: off the float64 sum")
@@ -1034,6 +1047,21 @@ def _k4_bwd_row(cap: dict, path: str) -> dict:
                         (lambda: _index_add_scatter(grads, idxs, (L * T, F))) if table_grad else None,
                         plain_syncs=True),
                **_bound(nbytes, N * L * 2**d * (2 * F + (d * d + F if pos_grad else 0))))
+    if table_grad:
+        with trace.recording():
+            row["counted_ms"] = device_ms(kernel)
+        order = torch.randperm(N, generator=torch.Generator(device=pos.device).manual_seed(0), device=pos.device)
+        pos_s, grad_s = pos[order].contiguous(), grad_out[order].contiguous()
+
+        def scattered():
+            return hash_encode_bwd(grad_s, pos_s, table, scal, T, L, F, pos_grad, table_grad)
+
+        with trace.recording():
+            scattered()
+            snap = trace.snapshot()
+        nonzero = snap.total("hash_encode/bwd_contributions")
+        row.update(scattered_ms=device_ms(scattered),
+                   scattered_atomics_share=snap.total("hash_encode/bwd_atomics") / nonzero if nonzero else None)
     return row
 
 

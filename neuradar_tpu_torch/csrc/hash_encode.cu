@@ -29,7 +29,7 @@
 // Backward (one launch a group of levels): a thread takes one point and walks the group's levels. It
 // recomputes each corner's row and weight from the positions (nothing but the positions is saved), and
 //  - adds each corner's gradient row R(R(grad) * weight) into a float32 accumulator of the group's
-//    rows with one vector atomic (red of 4 or 2 floats; sm_90). A row of exact zeros (+0 or -0) is
+//    rows with vector atomics (red of 4 or 2 floats; sm_90). A row of exact zeros (+0 or -0) is
 //    skipped: adding a zero to a float32 sum that starts at +0 changes no bit. The card's float32
 //    atomics flush a subnormal input or result to zero (PTX's atom.add.f32). A bf16 table's gradient
 //    is the accumulator rounded once (no bf16 atomics: each add would round); the accumulator covers
@@ -43,10 +43,18 @@
 //    signs alternate), so it sums in float64: the card's double rate is far above what this memory-bound
 //    loop asks of it, and the one rounding is then the only error that counts (float32 sums erred as
 //    much as plain autograd's). It takes the gradient as it comes (float32), not rounded to R.
-// Hot rows: a ray's consecutive samples share cells, most of all at the coarse levels, so a row can
-// take many atomics one after another in the L2. The lanes still add one by one: combining a warp's
-// equal rows first (__match_any_sync) was faster on the hot rows alone but no step moved, and it cost
-// 2.5-3x on scattered rows.
+// Hot rows: a ray's samples are consecutive points, so a warp holds 32 neighbouring samples of one ray, and at the
+// coarse levels runs of neighbouring lanes lie in one cell: their 2^d corner rows are the same rows, which would
+// take one atomic a lane one after another in the L2. So at each level a lane compares its cell with its left
+// neighbour's (d shuffles and one ballot: lanes in one cell share every corner row). A warp whose gradient rows at
+// the level are all exact zeros adds nothing and skips the level (the actor grids' rows mostly are). Each corner's
+// rows are summed over each run in registers (a segmented shuffle-down sum, as many steps as the longest run needs)
+// and the run's first lane adds the sum with one atomic, again skipping an exact-zero sum. Where no lane continues a
+// run, every run is one lane: the sum takes no step, and each lane adds its own row with one atomic, as above. Any
+// order of float32 adds stays within ops/hash_scatter.float64_sum's bound, and the atomics flush no more than one
+// subnormal an add. (A general combine of a warp's equal rows, __match_any_sync on every corner of every lane, was
+// 2.8x faster on hot rows alone but cost 2.5-3x on scattered rows.) With a stats buffer, each warp counts its
+// nonzero contributions and the atomics it issued, so their ratio says how far the run sums engage.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -240,44 +248,89 @@ __global__ void __launch_bounds__(kThreads)
   store_row<F>(out, static_cast<long long>(q) * F, acc);
 }
 
+// One level's table gradient of a warp's points: each lane's 2^d corner rows R(R(grad) * weight) summed
+// over each run of lanes in one cell (a run of one lane where the neighbours' cells differ) and added into
+// acc (the level's first row) by the run's first lane. Every lane of the warp calls it; a lane not valid
+// (past N) adds nothing and joins no run. Counts the lane's nonzero contributions and its atomics.
+template <int D, int F, bool kBf16>
+__device__ __forceinline__ void add_level(const Cell<D>& cell, const float (&g)[F], float* acc, unsigned int mask,
+                                          bool valid, unsigned int lane, unsigned int& contributions,
+                                          unsigned int& atomics) {
+  constexpr int C = 1 << D;
+  float gr[F];
+#pragma unroll
+  for (int k = 0; k < F; ++k) gr[k] = rnd<kBf16>(g[k]);
+  // a lane whose gradient row is exact zeros adds nothing at any corner: a warp of such lanes is done
+  if (!__any_sync(~0u, nonzero<F>(gr))) return;
+  // a valid lane's left neighbour is valid: the lane continues a run if their cells are equal
+  bool same = valid && lane > 0;
+#pragma unroll
+  for (int i = 0; i < D; ++i) same &= __shfl_up_sync(~0u, cell.base[i], 1) == cell.base[i];
+  const unsigned int heads = __ballot_sync(~0u, !same);
+  // the run's last lane: the lane before the next head above this one (2u << 31 wraps to 0)
+  const unsigned int above = heads & ~((2u << lane) - 1u);
+  const unsigned int end = above ? __ffs(above) - 2 : 31;
+  const unsigned int longest = __reduce_max_sync(~0u, same ? 0u : end - lane + 1);
+  const int steps = 32 - __clz(longest - 1);  // ceil(log2(longest)): 0 where every run is one lane
+#pragma unroll
+  for (int c = 0; c < C; ++c) {
+    const float w = corner_weight<D, kBf16>(cell, c);
+    float v[F];
+#pragma unroll
+    for (int k = 0; k < F; ++k) v[k] = rnd<kBf16>(__fmul_rn(gr[k], w));
+    contributions += nonzero<F>(v);
+    // after the step of offset o, a lane holds the sum of lanes [lane, lane + 2o) of its run
+    for (int st = 0, o = 1; st < steps; ++st, o <<= 1) {
+#pragma unroll
+      for (int k = 0; k < F; ++k) {
+        const float other = __shfl_down_sync(~0u, v[k], o);
+        if (lane + o <= end) v[k] = __fadd_rn(v[k], other);
+      }
+    }
+    if (!same && nonzero<F>(v)) {
+      add_row(acc + corner_row<D>(cell, c, mask) * F, v);
+      ++atomics;
+    }
+  }
+}
+
 // Levels [l0, l1) of N points. acc: the float32 gradient of the group's rows [l0 * T, l1 * T) (null: the
 // table needs none). kPosGrad: the positions' gradient, continued from pos_acc [N, D] (float64) unless
-// first, and written to pos_grad if last, else to pos_acc.
+// first, and written to pos_grad if last, else to pos_acc. stats (null: none): two counts added, the
+// nonzero contributions to the table's gradient and the atomics that added them. Every lane of a warp
+// runs the level loop (add_level's shuffles take the whole warp); lanes past N only take part.
 template <int D, int F, bool kBf16, bool kPosGrad>
 __global__ void __launch_bounds__(kThreads)
     hash_encode_bwd_kernel(const float* __restrict__ pos, const void* __restrict__ table,
                            const float* __restrict__ grad_out, const __grid_constant__ Scalings sc, long long N,
                            int L, int l0, int l1, unsigned int mask, long long T, float* __restrict__ acc,
-                           double* __restrict__ pos_acc, float* __restrict__ pos_grad, int first, int last) {
+                           double* __restrict__ pos_acc, float* __restrict__ pos_grad, int first, int last,
+                           unsigned long long* __restrict__ stats) {
   constexpr int C = 1 << D;
   const long long n = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
-  if (n >= N) return;
+  const bool valid = n < N;
+  const unsigned int lane = threadIdx.x & 31u;
   float p[D];
-  load_point<D, kBf16>(pos, n, p);
+  if (valid) {
+    load_point<D, kBf16>(pos, n, p);
+  } else {
+#pragma unroll
+    for (int i = 0; i < D; ++i) p[i] = 0.0f;
+  }
   double dp[D];
 #pragma unroll
-  for (int i = 0; i < D; ++i) dp[i] = (kPosGrad && !first) ? pos_acc[n * D + i] : 0.0;
+  for (int i = 0; i < D; ++i) dp[i] = (kPosGrad && !first && valid) ? pos_acc[n * D + i] : 0.0;
+  unsigned int contributions = 0, atomics = 0;
   for (int l = l0; l < l1; ++l) {
     const float s = sc.s[l];
     const Cell<D> cell = make_cell<D, kBf16>(p, s);
     float g[F];
 #pragma unroll
-    for (int k = 0; k < F; ++k) g[k] = grad_out[(n * L + l) * F + k];
-    const long long row0 = static_cast<long long>(l - l0) * T;
-    if (acc != nullptr) {
-      float gr[F];
-#pragma unroll
-      for (int k = 0; k < F; ++k) gr[k] = rnd<kBf16>(g[k]);
-#pragma unroll
-      for (int c = 0; c < C; ++c) {
-        const float w = corner_weight<D, kBf16>(cell, c);
-        float v[F];
-#pragma unroll
-        for (int k = 0; k < F; ++k) v[k] = rnd<kBf16>(__fmul_rn(gr[k], w));
-        if (nonzero<F>(v)) add_row(acc + (row0 + corner_row<D>(cell, c, mask)) * F, v);
-      }
-    }
-    if (kPosGrad) {
+    for (int k = 0; k < F; ++k) g[k] = valid ? grad_out[(n * L + l) * F + k] : 0.0f;
+    if (acc != nullptr)
+      add_level<D, F, kBf16>(cell, g, acc + static_cast<long long>(l - l0) * T * F, mask, valid, lane, contributions,
+                             atomics);
+    if (kPosGrad && valid) {
       const long long trow0 = static_cast<long long>(l) * T;
       float feat[C][F];
 #pragma unroll
@@ -304,13 +357,21 @@ __global__ void __launch_bounds__(kThreads)
       }
     }
   }
-  if (kPosGrad) {
+  if (kPosGrad && valid) {
 #pragma unroll
     for (int i = 0; i < D; ++i) {
       if (last)
         pos_grad[n * D + i] = __double2float_rn(dp[i]);
       else
         pos_acc[n * D + i] = dp[i];
+    }
+  }
+  if (stats != nullptr && acc != nullptr) {
+    const unsigned int warp_contributions = __reduce_add_sync(~0u, contributions);
+    const unsigned int warp_atomics = __reduce_add_sync(~0u, atomics);
+    if (lane == 0) {
+      atomicAdd(stats, static_cast<unsigned long long>(warp_contributions));
+      atomicAdd(stats + 1, static_cast<unsigned long long>(warp_atomics));
     }
   }
 }
@@ -342,14 +403,14 @@ void launch_fwd(const float* pos, const void* table, float* out, const Scalings&
 template <int D, int F, bool kBf16>
 void launch_bwd(const float* pos, const void* table, const float* grad_out, const Scalings& sc, long long N, int L,
                 int l0, int l1, long long T, float* acc, double* pos_acc, float* pos_grad, int first, int last,
-                cudaStream_t s) {
+                unsigned long long* stats, cudaStream_t s) {
   const unsigned int mask = static_cast<unsigned int>(T - 1);
   if (pos_grad != nullptr) {
     hash_encode_bwd_kernel<D, F, kBf16, true><<<blocks_for(N, kThreads), kThreads, 0, s>>>(
-        pos, table, grad_out, sc, N, L, l0, l1, mask, T, acc, pos_acc, pos_grad, first, last);
+        pos, table, grad_out, sc, N, L, l0, l1, mask, T, acc, pos_acc, pos_grad, first, last, stats);
   } else {
     hash_encode_bwd_kernel<D, F, kBf16, false><<<blocks_for(N, kThreads), kThreads, 0, s>>>(
-        pos, table, grad_out, sc, N, L, l0, l1, mask, T, acc, pos_acc, pos_grad, first, last);
+        pos, table, grad_out, sc, N, L, l0, l1, mask, T, acc, pos_acc, pos_grad, first, last, stats);
   }
 }
 
@@ -408,11 +469,13 @@ extern "C" int hash_encode_fwd(const void* pos, const void* table, int table_bf1
 // levels added; a bf16 table's (table_bf16 1) is then rounded into table_grad, the bf16 gradient's rows of
 // those levels; a float32 table's gradient is acc itself. pos_grad (null: the positions need no
 // gradient): [N, D], float32, written when last is 1; pos_acc, float64 [N, D], carries the sum from one
-// group to the next (read unless first, written unless last).
+// group to the next (read unless first, written unless last). stats (null: none): two unsigned 64-bit
+// counts on the device, to which the launch adds the table gradient's nonzero contributions (rows of F
+// values) and the atomics that added them.
 extern "C" int hash_encode_bwd(const void* pos, const void* table, int table_bf16, const void* grad_out,
                                const float* scalings, long long N, int D, int L, int F, long long T, int l0, int l1,
                                void* acc, void* table_grad, void* pos_acc, void* pos_grad, int first, int last,
-                               void* stream) {
+                               void* stats, void* stream) {
   if (!valid(N, D, L, F, T) || l0 < 0 || l1 > L || l0 >= l1 || (acc == nullptr && pos_grad == nullptr) ||
       (pos_grad != nullptr && pos_acc == nullptr && !(first && last)))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -428,7 +491,8 @@ extern "C" int hash_encode_bwd(const void* pos, const void* table, int table_bf1
     const bool ok = dispatch(D, F, table_bf16, [&](auto d, auto f, auto b) {
       launch_bwd<decltype(d)::value, decltype(f)::value, decltype(b)::value>(
           static_cast<const float*>(pos), table, static_cast<const float*>(grad_out), sc, N, L, l0, l1, T, accf,
-          static_cast<double*>(pos_acc), static_cast<float*>(pos_grad), first, last, s);
+          static_cast<double*>(pos_acc), static_cast<float*>(pos_grad), first, last,
+          static_cast<unsigned long long*>(stats), s);
     });
     if (!ok) return static_cast<int>(cudaErrorInvalidValue);
     const cudaError_t err = cudaGetLastError();

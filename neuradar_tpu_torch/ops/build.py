@@ -58,8 +58,8 @@ _SIGNATURES = {
     # pos, table, table_bf16, out, scalings (a host array), N, D, L, F, T, stream
     "hash_encode_fwd": [_P, _P, _I, _P, _FP, _L, _I, _I, _I, _L, _P],
     # pos, table, table_bf16, grad_out, scalings, N, D, L, F, T, l0, l1, acc, table_grad, pos_acc, pos_grad,
-    # first, last, stream
-    "hash_encode_bwd": [_P, _P, _I, _P, _FP, _L, _I, _I, _I, _L, _I, _I, _P, _P, _P, _P, _I, _I, _P],
+    # first, last, stats, stream
+    "hash_encode_bwd": [_P, _P, _I, _P, _FP, _L, _I, _I, _I, _L, _I, _I, _P, _P, _P, _P, _I, _I, _P, _P],
     # feats, radius, in_view, G, tw, th, tile_r, counts, tile_counts, stream
     "splat_bin_count": [_P, _P, _P, _I, _I, _I, _F, _P, _P, _P],
     # feats, radius, in_view, ends, counts, G, tw, th, tile_r, keys, gids, stream

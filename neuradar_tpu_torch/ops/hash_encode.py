@@ -9,9 +9,13 @@ with the positions cast to R and the output cast back). Its backward (``hash_enc
 each corner's row and weight, adds every corner's gradient into the table's (float32 atomics, rounded once
 to R), one launch a group of levels (``levels_per_launch``: a bf16 table's float32 accumulator holds at
 most ``SCRATCH_FLOATS`` values), and where ``ctx.needs_input_grad`` asks for it computes the positions'
-gradient in float64 and rounds it once. The kernel is templated on d in {3, 4}, F in {1, 2, 4} and R,
-which covers every preset's grid; ``check`` refuses any other encode (an untemplated grid or dtype, CUDA
-tensors on two devices, a table not aligned to its rows): there is no fallback on the card.
+gradient in float64 and rounds it once. A run of a warp's consecutive points in one cell of a level adds
+its corners' sum with one atomic; inside ``trace.recording()`` (not under a profiler alone), the launches
+count the table gradient's nonzero contributions and their atomics on the card
+(``hash_encode/bwd_contributions``, ``hash_encode/bwd_atomics``). The kernel is templated on d in {3, 4},
+F in {1, 2, 4} and R, which covers every preset's grid; ``check`` refuses any other encode (an untemplated
+grid or dtype, CUDA tensors on two devices, a table not aligned to its rows): there is no fallback on the
+card.
 """
 
 from __future__ import annotations
@@ -106,6 +110,8 @@ def hash_encode_bwd(grad_out: torch.Tensor, positions: torch.Tensor, table: torc
     acc = torch.empty(per * T * F, dtype=torch.float32, device=device) if table_grad and bf16 else gt
     gp = torch.empty_like(positions) if pos_grad else None
     pos_acc = torch.empty((N, d), dtype=torch.float64, device=device) if pos_grad and groups > 1 else None
+    # the two counts the launches add on the card, read when the window's snapshot is taken
+    stats = torch.zeros(2, dtype=torch.int64, device=device) if table_grad and trace.counting_device() else None
     stream = torch.cuda.current_stream(device).cuda_stream
     lib = build.load()
     scal = _floats(scalings)
@@ -116,10 +122,13 @@ def hash_encode_bwd(grad_out: torch.Tensor, positions: torch.Tensor, table: torc
         out_ptr = _ptr(gt, l0 * T * F * 2) if bf16 else None
         code = lib.hash_encode_bwd(positions.data_ptr(), table.data_ptr(), int(bf16), grad_out.data_ptr(), scal, N, d,
                                    L, F, T, l0, l1, acc_ptr, out_ptr, _ptr(pos_acc), _ptr(gp), int(g == 0),
-                                   int(g == groups - 1), stream)
+                                   int(g == groups - 1), _ptr(stats), stream)
         build.check(code, "hash_encode_bwd")
         if table_grad:
             trace.count("hash_scatter_rows", 2**d * N * (l1 - l0))
+    if stats is not None:
+        trace.count_device("hash_encode/bwd_contributions", stats[0])
+        trace.count_device("hash_encode/bwd_atomics", stats[1])
     return gp, gt
 
 

@@ -6,10 +6,14 @@ While recording, it also appends one entry to an in-memory log: the span's name,
 parent's id, the id of the step or request it belongs to, the thread, and its host start and end
 (``time.perf_counter_ns``). With ``device=True`` the entry also holds a pair of CUDA timing events
 recorded on the current stream around the span, which ``snapshot()`` resolves with one synchronize.
-``count(name, n)`` adds to a counter of the current step or request; ``host_sync(site)`` is the
-span ``host_sync/<site>`` around one call that makes the host wait for the card, and counts
+``count(name, n)`` adds to a counter of the current step or request; inside ``recording()`` alone,
+``count_device(name, tensor)`` keeps a one-element tensor that kernels count into on the card under the
+same key, and ``snapshot()`` adds its value after the synchronize it makes, so a count on the card
+brings no sync into a step (a profiler alone keeps none: see ``counting_device``); ``host_sync(site)``
+is the span ``host_sync/<site>`` around one call that makes the host wait for the card, and counts
 ``host_syncs``. Inside ``tally()`` a thread's counts go to a dictionary of their own instead, recording
-or not: a CUDA graph's capture launches nothing, and each replay adds what its capture counted.
+or not: a CUDA graph's capture launches nothing, and each replay adds what its capture counted (a device
+count has no value there and is not kept).
 
 A span opened with ``unit=True`` is a step or a request (``train/step``, ``request/radar``,
 ``request/camera``): while recording it draws the next id of a sequence, which goes into
@@ -98,6 +102,7 @@ class Recorder:
     def __init__(self):
         self._spans: List[Span] = []
         self._counters: Dict[Tuple[str, Optional[int]], int] = {}
+        self._device_counts: Dict[Tuple[str, Optional[int]], List[torch.Tensor]] = {}
         self._lock = threading.Lock()
         self._ids = itertools.count(1)
         self._unit_ids = itertools.count(1)
@@ -113,6 +118,7 @@ class Recorder:
         with self._lock:
             self._spans = []
             self._counters = {}
+            self._device_counts = {}
 
     def _stack(self) -> List[Span]:
         stack = getattr(self._local, "stack", None)
@@ -179,6 +185,16 @@ class Recorder:
         with self._lock:
             self._counters[(name, unit)] = self._counters.get((name, unit), 0) + n
 
+    def counting_device(self) -> bool:
+        return self._forced > 0 and getattr(self._local, "tally", None) is None
+
+    def count_device(self, name: str, value: torch.Tensor) -> None:
+        if not self.counting_device():
+            return
+        unit = self._context()[1]
+        with self._lock:
+            self._device_counts.setdefault((name, unit), []).append(value)
+
     @contextmanager
     def tally(self) -> Iterator[Dict[str, int]]:
         outer = getattr(self._local, "tally", None)
@@ -203,13 +219,17 @@ class Recorder:
     def snapshot(self) -> Snapshot:
         with self._lock:
             spans = [s for s in self._spans if s.end_ns]
-            counters = dict(self._counters)
+            device_counts, self._device_counts = self._device_counts, {}
         pending = [s for s in spans if s.events is not None]
-        if pending:
+        if pending or any(t.is_cuda for values in device_counts.values() for t in values):
             torch.cuda.synchronize()
             for s in pending:
                 s.device_ms = s.events[0].elapsed_time(s.events[1])
                 s.events = None
+        with self._lock:
+            for key, values in device_counts.items():  # final after the synchronize: kept as numbers
+                self._counters[key] = self._counters.get(key, 0) + sum(int(t) for t in values)
+            counters = dict(self._counters)
         return Snapshot(spans, counters)
 
 
@@ -245,6 +265,20 @@ def count(name: str, n: int = 1) -> None:
     RECORDER.count(name, n)
 
 
+def count_device(name: str, value: torch.Tensor) -> None:
+    """Add the one-element tensor ``value``, which kernels launched before ``snapshot()`` count into on
+    its device, to the counter ``name`` of the current step or request, while ``counting_device()``.
+    ``snapshot()`` reads it after its synchronize: no sync here."""
+    RECORDER.count_device(name, value)
+
+
+def counting_device() -> bool:
+    """Whether ``count_device`` keeps counts now: inside ``recording()`` and not inside ``tally()``. A
+    profiler alone keeps none, so a kernel asked to count only then runs under a profiler as it runs
+    unprofiled."""
+    return RECORDER.counting_device()
+
+
 def tally():
     """The counts this thread makes inside the block, by name, kept out of the window whether it records
     or not (a CUDA graph's capture: its launches run at each replay)."""
@@ -257,5 +291,6 @@ def recording():
 
 
 def snapshot() -> Snapshot:
-    """The current or last window: its closed spans, device times resolved, and its counters."""
+    """The current or last window: its closed spans, device times resolved, and its counters, device counts
+    read."""
     return RECORDER.snapshot()

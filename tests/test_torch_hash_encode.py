@@ -6,10 +6,13 @@ has no kernel; ``corner_rows`` gives the plain path's corner gradients bit for b
 evaluation of the positions' gradient (``encodings.positions_grad_float64``) is autograd's at float64.
 The tests marked ``cuda`` hold the kernel on the card: its forward bit-equal to the plain path at every
 preset's grid, the table's gradient within ``float64_sum``'s bound (colliding rows, one row hit by
-thousands of contributions, several level groups, subnormals), exact-zero rows leaving the result
-bit-identical, the positions' gradient no further from the float64 evaluation than plain autograd's, an
-encode's backward launching the kernel and no torch indexing or scatter operator, and the refusal of
-what the kernel does not run. They skip without a card; this file imports no JAX:
+thousands of contributions, several level groups, subnormals, rays of consecutive samples whose runs in
+one cell are summed before one atomic), exact-zero rows leaving the result bit-identical (in random and in
+ray order), the card's counts of contributions and atomics (fewer atomics in ray order, one a contribution
+where no neighbours share a cell), the positions' gradient no further from the float64 evaluation than
+plain autograd's and bit-identical with the counts on or off, an encode's backward launching the kernel
+and no torch indexing or scatter operator, and the refusal of what the kernel does not run. They skip
+without a card; this file imports no JAX:
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_hash_encode.py
 """
 
@@ -340,6 +343,130 @@ def test_zero_rows_leave_the_result_bit_identical(cuda, dims, F, dtype):
         assert torch.equal(got, plain)
         assert not bool((torch.signbit(got) & (got == 0)).any())
     assert bool((got == 0).any()) and bool((got != 0).any())
+
+
+def _ray_points(device, rays, samples, d, seed, exact=False):
+    """[rays * samples, d] points in ray order, as a model's samples reach the encode: each ray from an origin
+    in [0.1, 0.9]^3 over a length of up to 0.9, its samples sorted by depth, clamped to [0, 1]; a 4-D point's
+    last coordinate (the actor's) fixed a ray. ``exact``: each coordinate floored to a multiple of 1/4, a cell
+    corner of every level of scalings 4, 8, 16."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    origin = torch.rand((rays, 1, 3), generator=gen, device=device) * 0.8 + 0.1
+    direction = torch.nn.functional.normalize(torch.randn((rays, 1, 3), generator=gen, device=device), dim=-1)
+    depth = torch.rand((rays, samples, 1), generator=gen, device=device).sort(dim=1).values * 0.9
+    p = (origin + depth * direction).clamp(0, 1)
+    if d == 4:
+        p = torch.cat([p, torch.rand((rays, 1, 1), generator=gen, device=device).expand(rays, samples, 1)], dim=-1)
+    if exact:
+        p = torch.floor(p * 4) / 4
+    return p.reshape(rays * samples, d).contiguous()
+
+
+def _bwd_counts(enc, positions, grad_out, pos_grad=False):
+    """The kernel's backward of ``enc`` on ``positions`` inside a recording: the table's gradient, the
+    positions' (or None) and the counts (nonzero contributions, atomics) the launches made on the card."""
+    R = enc.compute_dtype or torch.float32
+    scal = enc.host_scalings(R)
+    with trace.recording():
+        gp, gt = t_encode.hash_encode_bwd(grad_out, positions, enc.hash_table.detach().to(R).contiguous(), scal,
+                                          enc.table_size, enc.num_levels, enc.features_per_level, pos_grad, True)
+        snap = trace.snapshot()
+    return gt, gp, (snap.total("hash_encode/bwd_contributions"), snap.total("hash_encode/bwd_atomics"))
+
+
+def _nonzero_contributions(grads) -> int:
+    return sum(int((g != 0).any(dim=-1).sum()) for g in grads)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N", [64 * 512, 64 * 512 - 7])
+@pytest.mark.parametrize("dtype", DTYPES, ids=DTYPE_IDS)
+@pytest.mark.parametrize("grid", ["nerfacto_huge_proposal_0", "nerfacto_huge_proposal_1", "nerfacto_huge_field",
+                                  "field_static"])
+def test_ray_ordered_runs_within_float64_sum(cuda, grid, dtype, N):
+    """Rays of 512 consecutive samples sorted by depth: at the coarse levels runs of neighbouring lanes lie
+    in one cell and each run adds its corners' sum with one atomic; every other ray's gradient is exact
+    zeros (as an actor grid's outside its box), whose warps skip the level. The table's gradient stays
+    within ``float64_sum``'s bound, the card counts every nonzero contribution, and fewer atomics than
+    those. With N no multiple of 32 the last ray is cut inside a warp: its lanes past N join no run."""
+    enc = _grid_encoder(grid, dtype, cuda, seed=2)
+    positions = _ray_points(cuda, 64, 512, enc.n_input_dims, seed=4)[:N].contiguous()
+    grad_out = _grad_out(cuda, 64 * 512, enc.get_out_dim(), seed=4)
+    grad_out.view(64, 512, -1)[::2] = 0
+    grad_out = grad_out[:N].contiguous()
+    gt, _, (contributions, atomics) = _bwd_counts(enc, positions, grad_out)
+    grads, idxs = _contributions(enc, positions, grad_out)
+    assert contributions == _nonzero_contributions(grads) > 0
+    assert 0 < atomics < contributions, (atomics, contributions)
+    exact, bound = t_scatter.float64_sum(grads, idxs, (enc.num_levels * enc.table_size, enc.features_per_level))
+    err = (gt.view(exact.shape).double() - exact).abs()
+    assert bool((err <= bound).all()), float((err - bound).max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES, ids=DTYPE_IDS)
+@pytest.mark.parametrize("dims,F", [(3, 1), (3, 2), (3, 4), (4, 1), (4, 4)])
+def test_scattered_rows_take_one_atomic_a_contribution(cuda, dims, F, dtype):
+    """Neighbouring points in far halves of the first axis (0 to 1/4 and 3/4 to 1): no two neighbouring
+    lanes share a cell at any level, so every level takes the per-lane atomics, exactly one a nonzero
+    contribution, and the gradient stays within ``float64_sum``'s bound. N is no multiple of 32: the last
+    warp's lanes past N add nothing."""
+    N, L = 3001, 4
+    enc = _encoder(dims, F, dtype, device=cuda, num_levels=L, log2_hashmap_size=10)
+    gen = torch.Generator(device=cuda).manual_seed(dims * F)
+    positions = torch.rand((N, dims), generator=gen, device=cuda)
+    positions[:, 0] = positions[:, 0] * 0.25 + 0.75 * (torch.arange(N, device=cuda) % 2)
+    grad_out = _grad_out(cuda, N, L * F, seed=dims * F)
+    gt, _, (contributions, atomics) = _bwd_counts(enc, positions, grad_out)
+    grads, idxs = _contributions(enc, positions, grad_out)
+    assert atomics == contributions == _nonzero_contributions(grads) > 0
+    exact, bound = t_scatter.float64_sum(grads, idxs, (L * enc.table_size, F))
+    assert bool(((gt.view(exact.shape).double() - exact).abs() <= bound).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES, ids=DTYPE_IDS)
+@pytest.mark.parametrize("dims,F", [(3, 4), (4, 1)])
+def test_ray_ordered_zero_rows_leave_the_result_bit_identical(cuda, dims, F, dtype):
+    """``test_zero_rows_leave_the_result_bit_identical`` in ray order: rays of points on cell corners and
+    gradients of -1, 0 or 1, so that runs of lanes sum their rows in registers first. The sums are exact in
+    any order, so the kernel equals the plain path's scatter bit for bit; a run whose sum is an exact zero
+    (+0 or -0) adds nothing, and no element reads -0."""
+    L = 3
+    enc = _encoder(dims, F, dtype, device=cuda, num_levels=L, min_res=4, max_res=16)
+    assert enc.scalings == (4.0, 8.0, 16.0)
+    positions = _ray_points(cuda, 16, 64, dims, seed=8, exact=True)
+    grad_out = _grad_out(cuda, positions.shape[0], L * F, seed=8, integer=True)
+    shape = (L * enc.table_size, F)
+    for g in (grad_out, torch.where(grad_out > 0, torch.full_like(grad_out, -0.0), grad_out)):
+        grads, idxs = _contributions(enc, positions, g)
+        plain = t_scatter.hash_scatter_reference(grads, idxs, shape)
+        gt, _, (contributions, atomics) = _bwd_counts(enc, positions, g)
+        got = gt.view(shape).to(plain.dtype)
+        assert torch.equal(got, plain)
+        assert not bool((torch.signbit(got) & (got == 0)).any())
+        assert atomics < contributions == _nonzero_contributions(grads)
+    assert bool((got == 0).any()) and bool((got != 0).any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES, ids=DTYPE_IDS)
+@pytest.mark.parametrize("grid", ["nerfacto_huge_proposal_0", "nerfacto_huge_field", "field_actor"])
+def test_positions_gradient_bit_identical_with_counts(cuda, grid, dtype):
+    """The positions' gradient does not depend on the counts: in ray order, the backward's positions'
+    gradient with the counting buffer (inside a recording) equals the one without it bit for bit."""
+    enc = _grid_encoder(grid, dtype, cuda, seed=6)
+    positions = _ray_points(cuda, 32, 512, enc.n_input_dims, seed=6)
+    grad_out = _grad_out(cuda, positions.shape[0], enc.get_out_dim(), seed=6)
+    R = enc.compute_dtype or torch.float32
+    table = enc.hash_table.detach().to(R).contiguous()
+    args = (grad_out, positions, table, enc.host_scalings(R), enc.table_size, enc.num_levels,
+            enc.features_per_level, True, True)
+    assert not trace.counting_device()
+    gp_plain, _ = t_encode.hash_encode_bwd(*args)
+    _, gp, (contributions, atomics) = _bwd_counts(enc, positions, grad_out, pos_grad=True)
+    assert 0 < atomics < contributions
+    assert torch.equal(gp, gp_plain)
 
 
 @pytest.mark.cuda

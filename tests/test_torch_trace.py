@@ -2,7 +2,7 @@
 recorded, how a request's and a train step's spans nest and share an id, and that routing a hash
 grid encode's corner gathers through the ``hash_encode/scatter`` span leaves the tables' gradients
 bit-equal to autograd's own, and that every hand-written kernel's launch is counted in one place,
-``ops/build.check``."""
+``ops/build.check``, and that counts made on the card are kept as tensors and read by ``snapshot()``."""
 
 import threading
 
@@ -217,6 +217,47 @@ def test_tally_keeps_counts_out_of_the_window():
     with trace.tally() as off:
         trace.count("cuda_graph/captures")
     assert off == {"cuda_graph/captures": 1}
+
+
+def test_device_counts_resolved_by_snapshot():
+    """(i) ``trace.count_device`` keeps a one-element tensor under (name, the current step or request) while
+    recording; ``snapshot()`` adds its value, as it is when the snapshot is taken, into the counters, once:
+    a later snapshot gives the same counts. Outside a recording, under a profiler alone (which records the
+    step and its plain counts) and inside ``tally()``, nothing is kept."""
+    assert not trace.counting_device()
+    trace.count_device("hash_encode/bwd_atomics", torch.tensor(9, dtype=torch.int64))
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+        assert not trace.counting_device()
+        with trace.span("train/step", unit=True):
+            trace.count("hash_encode/bwd_atomics", 1)
+            trace.count_device("hash_encode/bwd_atomics", torch.tensor(9, dtype=torch.int64))
+        profiled = trace.snapshot()
+    (step,) = profiled.units("train/step")[-1:]
+    assert profiled.count("hash_encode/bwd_atomics", [step]) == 1
+    with trace.recording():
+        assert trace.counting_device()
+        stats = torch.zeros(2, dtype=torch.int64)
+        with trace.span("train/step", unit=True):
+            trace.count("hash_encode/bwd_atomics", 1)
+            trace.count_device("hash_encode/bwd_contributions", stats[0])
+            trace.count_device("hash_encode/bwd_atomics", stats[1])
+            trace.count_device("hash_encode/bwd_atomics", torch.tensor([4], dtype=torch.int64))
+            with trace.tally() as kept:
+                assert not trace.counting_device()
+                trace.count_device("hash_encode/bwd_atomics", torch.tensor(100))
+        trace.count_device("hash_encode/bwd_atomics", torch.tensor(5))
+        stats += torch.tensor([7, 3])  # counted after the call, as a kernel launched before the snapshot
+        snap = trace.snapshot()
+        (step,) = snap.units("train/step")
+        assert kept == {}
+        assert snap.counters == {("hash_encode/bwd_atomics", step.unit): 8,
+                                 ("hash_encode/bwd_contributions", step.unit): 7,
+                                 ("hash_encode/bwd_atomics", None): 5}
+        stats += 1
+        assert trace.snapshot().counters == snap.counters
+    assert snap.count("hash_encode/bwd_atomics", [step]) == 8 and snap.total("hash_encode/bwd_atomics") == 13
+    trace.count_device("hash_encode/bwd_atomics", torch.tensor(9))
+    assert trace.snapshot().counters == snap.counters
 
 
 def test_launches_are_counted_by_build_check():
